@@ -1,0 +1,57 @@
+"""
+MarEx on PyTorch: marine extremes detection and tracking on an NVIDIA GPU
+==========================================================================
+
+The PyTorch port of ``marex_tpu``, with the same public entry points:
+
+>>> import marex_tpu_torch as marEx
+>>> ds = marEx.preprocess_data(sst, method_anomaly="fixed_baseline",
+...                            method_extreme="global_extreme", device="cuda")
+>>> events = marEx.tracker(ds.extreme_events, ds.mask, R_fill=12, T_fill=4,
+...                        area_filter_absolute=600, grid_resolution=0.25,
+...                        allow_merging=False).run()
+
+Ported so far: the fixed-baseline / global-extreme detect path and gridded,
+global, no-merge tracking. Tensors stay on the device they were given;
+numpy inputs move to ``device`` (default ``"cuda"``). The connected-component
+labelling runs on hand-written CUDA kernels (``csrc/min_stencil.cu``),
+compiled with ``nvcc`` at first use.
+"""
+
+from .core.field import Coord, Field, FieldSet, as_field, from_reference
+from .detect import compute_normalised_anomaly, identify_extremes, preprocess_data
+from .exceptions import (
+    ConfigurationError,
+    CoordinateError,
+    DataValidationError,
+    DependencyError,
+    DeviceError,
+    MarExError,
+    ProcessingError,
+    TrackingError,
+    VisualisationError,
+)
+from .track import tracker
+
+__all__ = [
+    "Field",
+    "FieldSet",
+    "Coord",
+    "as_field",
+    "from_reference",
+    "preprocess_data",
+    "compute_normalised_anomaly",
+    "identify_extremes",
+    "tracker",
+    "MarExError",
+    "DataValidationError",
+    "CoordinateError",
+    "ProcessingError",
+    "ConfigurationError",
+    "DependencyError",
+    "TrackingError",
+    "VisualisationError",
+    "DeviceError",
+]
+
+__version__ = "0.1.0"

@@ -1,0 +1,95 @@
+"""The port's CUDA kernels and its config-1 slice on the card: each kernel
+against its plain PyTorch version, and the slice on CUDA against the slice on
+the CPU. Every test needs a CUDA device (and ``nvcc`` to build the kernels)
+and skips without one.
+
+This file imports neither JAX nor the JAX package, so it runs on a machine
+that has only PyTorch; ``--noconftest`` keeps out ``tests/conftest.py``,
+which imports JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import marex_tpu_torch as port
+from marex_tpu_torch.ops.min_stencil import (
+    BIG,
+    hook,
+    hook_plain,
+    min_stencil,
+    min_stencil_plain,
+    pointer_jump,
+    pointer_jump_plain,
+)
+
+DETECT_FIXED = dict(method_anomaly="fixed_baseline", method_extreme="global_extreme", threshold_percentile=95)
+TRACK_SMALL = dict(R_fill=2, T_fill=2, area_filter_absolute=8, allow_merging=False)
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc) to build and launch the kernels")
+
+
+def _drive_sst(seed=0, T=3 * 365, ny=24, nx=48):
+    """The verify drive (daily AR(1) SST with a land block) as a port Field."""
+    rng = np.random.default_rng(seed)
+    sst = 15 + rng.standard_normal((T, ny, nx)).astype(np.float32)
+    for k in range(1, T):
+        sst[k] = 0.7 * sst[k - 1] + 0.4 * sst[k]
+    sst[:, 3:6, 10:15] = np.nan
+    coords = {
+        "time": np.datetime64("2000-01-01", "ns") + np.arange(T) * np.timedelta64(1, "D"),
+        "lat": np.linspace(-60, 60, ny),
+        "lon": np.linspace(0, 360, nx, endpoint=False),
+    }
+    return port.Field(sst, ("time", "lat", "lon"), coords, name="sst")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 7, 13), (3, 720, 1440), (10, 1, 1), (1095, 720, 1440)])
+def test_cuda_kernels_match_plain_versions(shape):
+    """(1095, 720, 1440) is the main path's shape (3 yr of daily 0.25 degree
+    data): its CCLs call the stencil on it, and the hook and the jump with
+    slice sizes H*W (per slice) and T*H*W (3-D)."""
+    _need_cuda()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    T, H, W = shape
+    data_d = torch.rand(shape, generator=g, device="cuda") < 0.5
+    for S in (H * W, T * H * W):
+        lab_d = torch.randint(0, S, shape, generator=g, device="cuda", dtype=torch.int32)
+        lab_d.masked_fill_(torch.rand(shape, generator=g, device="cuda") < 0.3, BIG)
+        if S == H * W:
+            for masked in (True, False):
+                for wrap_x in (True, False):
+                    d = data_d if masked else None
+                    got = min_stencil(lab_d, d, masked=masked, wrap_x=wrap_x)
+                    assert torch.equal(got, min_stencil_plain(lab_d, d, masked=masked, wrap_x=wrap_x)), (masked, wrap_x)
+                    del got
+        assert torch.equal(pointer_jump(lab_d, S), pointer_jump_plain(lab_d, S)), S
+        m = torch.where(lab_d == BIG, BIG, torch.minimum(lab_d, lab_d.flip(-1)))
+        assert torch.equal(hook(lab_d, m, S), hook_plain(lab_d, m, S)), S
+        del lab_d, m
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_slice_on_cuda_matches_cpu():
+    _need_cuda()
+    sst = _drive_sst()
+    out = {}
+    for device in ("cpu", "cuda"):
+        ds = port.preprocess_data(sst, device=device, quiet=True, **DETECT_FIXED)
+        ev = port.tracker(ds["extreme_events"], ds["mask"], device=device, quiet=True, **TRACK_SMALL).run()
+        out[device] = ds, ev
+    (c_ds, c_ev), (g_ds, g_ev) = out["cpu"], out["cuda"]
+    for key in ("extreme_events", "mask"):
+        assert np.array_equal(c_ds[key].values, g_ds[key].values), key
+    assert np.array_equal(c_ev["ID_field"].values, g_ev["ID_field"].values)
+    np.testing.assert_allclose(c_ds["dat_anomaly"].values, g_ds["dat_anomaly"].values, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(c_ds["thresholds"].values, g_ds["thresholds"].values, rtol=0, atol=1e-5)
+    assert g_ev.attrs == c_ev.attrs and g_ev.attrs["N_events_final"] > 0

@@ -1,0 +1,94 @@
+"""Helpers for the parity tests of the PyTorch port (``marex_tpu_torch``)
+against the JAX reference (``marex_tpu``).
+
+Inputs are made with numpy from a seed and handed to both packages; the port
+runs with ``device="cpu"``, i.e. through the plain PyTorch versions of its
+kernels. The contract: boolean and integer fields bit-identical, float fields
+within 1e-5 (the anomaly tolerance of ``BASELINE.json``), attrs equal.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pandas as pd
+import torch
+
+from marex_tpu.core.field import Field
+
+DETECT_FIXED = dict(
+    method_anomaly="fixed_baseline",
+    method_extreme="global_extreme",
+    method_percentile="approximate",
+    threshold_percentile=95,
+)
+# config-1 tracking at the small drive's scale (production: R_fill=12, T_fill=4, area 600)
+TRACK_SMALL = dict(R_fill=2, T_fill=2, area_filter_absolute=8, allow_merging=False)
+FLOAT_ATOL = 1e-5
+
+
+def drive_sst(seed: int = 0, n_years: int = 3, ny: int = 24, nx: int = 48) -> Field:
+    """The verify drive: daily AR(1) SST, 3 yr x 24 x 48, with a land block."""
+    rng = np.random.default_rng(seed)
+    times = pd.date_range("2000-01-01", periods=n_years * 365, freq="D").to_numpy()
+    T = len(times)
+    lat = np.linspace(-60, 60, ny)
+    lon = np.linspace(0, 360, nx, endpoint=False)
+    sst = 15 + rng.standard_normal((T, ny, nx)).astype(np.float32)
+    for k in range(1, T):
+        sst[k] = 0.7 * sst[k - 1] + 0.4 * sst[k]
+    sst[:, 3:6, 10:15] = np.nan
+    return Field(sst, ("time", "lat", "lon"), {"time": times, "lat": lat, "lon": lon}, name="sst")
+
+
+def blob_field(seed: int, T: int, H: int, W: int, n_blobs: int, r_max: int = 6) -> np.ndarray:
+    """(T, H, W) bool field of random disks (periodic in x) lasting 1-4 steps,
+    plus a seam-crossing block, so labelling meets wrap and time links."""
+    rng = np.random.default_rng(seed)
+    data = np.zeros((T, H, W), bool)
+    yy, xx = np.mgrid[0:H, 0:W]
+    for _ in range(n_blobs):
+        t0 = int(rng.integers(0, T))
+        dur = int(rng.integers(1, 5))
+        cy, cx = int(rng.integers(0, H)), int(rng.integers(0, W))
+        r = int(rng.integers(1, r_max + 1))
+        dx = np.minimum(np.abs(xx - cx), W - np.abs(xx - cx))
+        data[t0 : t0 + dur] |= (yy - cy) ** 2 + dx**2 <= r * r
+    data[T // 3 : T // 3 + 3, H // 3 : H // 3 + 4, :2] = True
+    data[T // 3 : T // 3 + 3, H // 3 : H // 3 + 4, W - 2 :] = True
+    return data
+
+
+def bool_fields(data: np.ndarray, mask: np.ndarray):
+    """``(extreme_events, mask)`` reference Fields on a global 0..360 grid."""
+    T, H, W = data.shape
+    coords = {
+        "time": pd.date_range("2000-01-01", periods=T, freq="D").to_numpy(),
+        "lat": np.linspace(-60, 60, H),
+        "lon": np.linspace(0, 360, W, endpoint=False),
+    }
+    ev = Field(data, ("time", "lat", "lon"), coords, name="extreme_events")
+    mk = Field(mask, ("lat", "lon"), {"lat": coords["lat"], "lon": coords["lon"]}, name="mask")
+    return ev, mk
+
+
+def to_np(x) -> np.ndarray:
+    """Host numpy view of a torch tensor or a JAX/numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_same(ref, port, what: str = "") -> None:
+    """Bit-identical values and dtype kind (bool / integer)."""
+    a, b = to_np(ref), to_np(port)
+    assert a.shape == b.shape, f"{what}: shape {a.shape} vs {b.shape}"
+    assert a.dtype.kind == b.dtype.kind, f"{what}: dtype {a.dtype} vs {b.dtype}"
+    assert np.array_equal(a, b), f"{what}: {int(np.sum(a != b))} of {a.size} values differ"
+
+
+def assert_close(ref, port, atol: float = FLOAT_ATOL, what: str = "") -> None:
+    """Float fields: same NaN pattern, finite values within ``atol``."""
+    a, b = to_np(ref).astype(np.float64), to_np(port).astype(np.float64)
+    assert a.shape == b.shape, f"{what}: shape {a.shape} vs {b.shape}"
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=f"{what}: NaN pattern")
+    np.testing.assert_allclose(a, b, rtol=0, atol=atol, equal_nan=True, err_msg=what)
