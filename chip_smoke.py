@@ -11,16 +11,25 @@ Phases, each of which raises (and so exits nonzero) on failure:
    (tolerance 0) over masked/plain modes, ``wrap_x`` on and off, per-slice
    and whole-block slice sizes, random masks, ragged shapes and the main
    path's own shape 1095 x 720 x 1440; then both timed at (64, 720, 1440);
-4. the whole slice at 3 yr x 180 x 360, on CUDA and on the CPU (plain
-   versions): boolean and integer outputs bit-identical, floats within 1e-5;
-5. the main path at full size, 3 yr x 720 x 1440 daily (0.25 degree global),
+4. both paths at 3 yr x 180 x 360, on CUDA and on the CPU (plain
+   versions): config 1 (no merging) with boolean and integer outputs
+   bit-identical and floats within 1e-5; then config 4 (merging, nearest-cell
+   partitioning) with ``ID_field``, ``global_ID``, ``presence``,
+   ``merge_ledger`` and every merge record bit-identical, ``area`` and
+   ``centroid`` within 1e-5, and merges and partitions that really happened;
+5. both paths at full size, 3 yr x 720 x 1440 daily (0.25 degree global),
    generated on the card from ``--seed``: ``preprocess_data`` (fixed
    baseline, global 95th percentile) then ``tracker(R_fill=12, T_fill=4,
-   area_filter_absolute=600, grid_resolution=0.25, allow_merging=False).run()``.
+   area_filter_absolute=600, grid_resolution=0.25, ...)``, first with
+   ``allow_merging=False`` (config 1), then with ``allow_merging=True,
+   nn_partitioning=True, overlap_threshold=0.25`` and
+   ``run(return_merges=True)`` (config 4, the main path). Each path is run
+   with the kernels' launch counts set to 0 just before it and read just
+   after.
 
-The line before the last is a JSON object with each kernel's launches in
-phase 5, its largest difference from the plain version and both times; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with each kernel's launches on the
+merge path of phase 5, its largest difference from the plain version and
+both times; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -98,17 +107,21 @@ def make_sst(n_years: int, ny: int, nx: int, seed: int, device: str):
     return sst, {"time": times, "lat": lat, "lon": lon}
 
 
-def track_kwargs(ny: int) -> dict:
+def track_kwargs(ny: int, merge: bool = False) -> dict:
     """Production tracking parameters at 0.25 degree (ny = 720), with R_fill
-    and the area floor scaled with resolution on coarser grids (as bench.py)."""
+    and the area floor scaled with resolution on coarser grids (as bench.py);
+    ``merge`` gives config 4's split/merge settings, else config 1's."""
     s = min(ny / 720.0, 1.0)
-    return dict(
+    kw = dict(
         R_fill=max(int(round(12 * s)), 2),
         T_fill=4,
         area_filter_absolute=max(int(round(600 * s * s)), 8),
         grid_resolution=round(180.0 / ny, 4),
-        allow_merging=False,
+        allow_merging=merge,
     )
+    if merge:
+        kw.update(nn_partitioning=True, overlap_threshold=0.25)
+    return kw
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -137,7 +150,9 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor, chunk: int = 1 << 26) -> int:
     )
 
 
-def run_slice(mx, sst, coords, device: str, ny: int):
+def run_slice(mx, sst, coords, device: str, ny: int, merge: bool = False):
+    """detect + track through the entry points; returns (ds, events, merges
+    (None without merging), tracker, detect wall, track wall, detect peak)."""
     t0 = time.perf_counter()
     ds = mx.preprocess_data(mx.Field(sst, ("time", "lat", "lon"), coords, name="sst"), device=device, quiet=True,
                             **DETECT_FIXED)
@@ -146,12 +161,162 @@ def run_slice(mx, sst, coords, device: str, ny: int):
         torch.cuda.synchronize()
         detect_peak = torch.cuda.max_memory_allocated()
     t1 = time.perf_counter()
-    tr = mx.tracker(ds.extreme_events, ds.mask, device=device, quiet=True, **track_kwargs(ny))
-    events = tr.run()
+    tr = mx.tracker(ds.extreme_events, ds.mask, device=device, quiet=True, **track_kwargs(ny, merge))
+    events, merges = tr.run(return_merges=True) if merge else (tr.run(), None)
     if device == "cuda":
         torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return ds, events, tr, t1 - t0, t2 - t1, detect_peak
+    return ds, events, merges, tr, t1 - t0, t2 - t1, detect_peak
+
+
+def compare_merge_runs(ev_g, mg_g, tr_g, ev_c, mg_c) -> dict:
+    """Config 4 on CUDA against the CPU: integer and boolean outputs and the
+    merge records bit-identical, area and centroid within 1e-5 (relative, or
+    absolute near 0: areas are km^2); raises on any difference. Returns the
+    largest float differences."""
+    for key in ("ID_field", "global_ID", "presence", "merge_ledger", "time_start", "time_end"):
+        if not np.array_equal(ev_g[key].values, ev_c[key].values):
+            raise AssertionError(f"merge slice: {key} differs between CUDA and CPU")
+    for key in ("parent_IDs", "child_IDs", "overlap_areas", "merge_time", "n_parents", "n_children"):
+        if not np.array_equal(mg_g[key].values, mg_c[key].values):
+            raise AssertionError(f"merge slice: merges {key} differs between CUDA and CPU")
+    diff = {}
+    for key in ("area", "centroid"):
+        a, b = ev_g[key].values.astype(np.float64), ev_c[key].values.astype(np.float64)
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=f"merge slice: {key} NaN pattern")
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5, err_msg=f"merge slice: {key}")
+        fin = np.isfinite(a)
+        d = np.abs(a[fin] - b[fin])
+        diff[key] = (float(d.max()) if d.size else 0.0, float((d / np.maximum(np.abs(b[fin]), 1e-30)).max()) if d.size else 0.0)
+    for key in ("N_events_final", "total_merges"):
+        if ev_g.attrs[key] != ev_c.attrs[key]:
+            raise AssertionError(f"merge slice: {key} {ev_g.attrs[key]} (CUDA) vs {ev_c.attrs[key]} (CPU)")
+    if ev_g.attrs["total_merges"] <= 0 or tr_g.dispatch_counts.get("partition", 0) <= 0:
+        raise AssertionError(f"merge slice: no merge or no partition ran: {ev_g.attrs}, {tr_g.dispatch_counts}")
+    return diff
+
+
+def check_merge_outputs(events, merges, T: int, ny: int, nx: int) -> int:
+    """The merge path's outputs are whole: ids 0..N over the field, a (time,
+    ID) table that marks exactly the present events, finite positive areas
+    and in-range centroids where an event is present. Returns N."""
+    n = int(events.attrs["N_events_final"])
+    ids = events["ID_field"].data
+    if tuple(ids.shape) != (T, ny, nx) or ids.dtype != torch.int32:
+        raise AssertionError(f"ID_field has shape {tuple(ids.shape)} and dtype {ids.dtype}")
+    if n <= 0 or int(ids.max()) != n or int(ids.min()) != 0:
+        raise AssertionError(f"ID_field range [{int(ids.min())}, {int(ids.max())}] vs N_events_final {n}")
+    pres = events["presence"].data
+    gid = events["global_ID"].data
+    if tuple(pres.shape) != (T, n) or not torch.equal(pres, gid > 0) or not bool(pres.any(0).all()):
+        raise AssertionError("presence does not match global_ID, or an event is never present")
+    area = events["area"].data
+    cent = events["centroid"].data
+    if not bool(torch.isfinite(area[pres]).all()) or not bool((area[pres] > 0).all()):
+        raise AssertionError("non-finite or non-positive event area where present")
+    lat, lon = cent[0][pres], cent[1][pres]
+    if not bool(((lat >= -90) & (lat <= 90) & (lon >= 0) & (lon < 360)).all()):
+        raise AssertionError("event centroid out of range where present")
+    if int(events.attrs["total_merges"]) != merges["n_parents"].shape[0]:
+        raise AssertionError("total_merges differs from the merge records")
+    return n
+
+
+def slices_against_cpu(mx, ny: int, nx: int, seed: int, device: str) -> None:
+    """Phase 4: config 1 and config 4 at 3 yr x ny x nx on ``device`` and on
+    the CPU; raises on any difference beyond the stated tolerances."""
+    sst, coords = make_sst(3, ny, nx, seed, device)
+    sst_cpu = sst.cpu()
+    ds_g, ev_g, _, tr_g, det_g, trk_g, _ = run_slice(mx, sst, coords, device, ny)
+    ds_c, ev_c, _, tr_c, det_c, trk_c, _ = run_slice(mx, sst_cpu, coords, "cpu", ny)
+    for key in ("extreme_events", "mask"):
+        if not np.array_equal(ds_g[key].values, ds_c[key].values):
+            raise AssertionError(f"mid-size slice: {key} differs between CUDA and CPU")
+    if not np.array_equal(ev_g["ID_field"].values, ev_c["ID_field"].values):
+        raise AssertionError("mid-size slice: ID_field differs between CUDA and CPU")
+    float_diff = {}
+    for key in ("dat_anomaly", "thresholds"):
+        a, b = ds_g[key].values, ds_c[key].values
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"mid-size slice: {key} NaN pattern differs")
+        float_diff[key] = float(np.nanmax(np.abs(a - b))) if np.isfinite(a).any() else 0.0
+        if float_diff[key] > 1e-5:
+            raise AssertionError(f"mid-size slice: {key} differs by {float_diff[key]} > 1e-5")
+    n_attrs = {k: v for k, v in ev_g.attrs.items() if k.startswith("N_")}
+    if n_attrs != {k: v for k, v in ev_c.attrs.items() if k.startswith("N_")}:
+        raise AssertionError(f"mid-size slice: N_* attrs differ: {n_attrs} vs {ev_c.attrs}")
+    print(
+        f"slice 3yr x {ny} x {nx}: CUDA == CPU (extreme_events, mask, ID_field bit-identical; "
+        f"max |diff| dat_anomaly {float_diff['dat_anomaly']}, thresholds {float_diff['thresholds']}); "
+        f"{n_attrs}; cuda detect {det_g:.3f} s track {trk_g:.3f} s; cpu detect {det_c:.3f} s track {trk_c:.3f} s; "
+        f"ccl iterations cuda {tr_g.ccl_iterations} cpu {tr_c.ccl_iterations}"
+    )
+    del ds_g, ev_g, tr_g, ds_c, ev_c, tr_c
+
+    _, ev_g, mg_g, tr_g, det_g, trk_g, _ = run_slice(mx, sst, coords, device, ny, merge=True)
+    _, ev_c, mg_c, tr_c, det_c, trk_c, _ = run_slice(mx, sst_cpu, coords, "cpu", ny, merge=True)
+    diff = compare_merge_runs(ev_g, mg_g, tr_g, ev_c, mg_c)
+    m_attrs = {k: ev_g.attrs[k] for k in ("N_objects_filtered", "N_events_final", "total_merges", "multi_parent_merges")}
+    print(
+        f"merge slice 3yr x {ny} x {nx}: CUDA == CPU (ID_field, global_ID, presence, merge_ledger and merge "
+        f"records bit-identical; max |diff| (abs, rel) area {diff['area']}, centroid {diff['centroid']}); "
+        f"{m_attrs}; dispatches cuda {tr_g.dispatch_counts} cpu {tr_c.dispatch_counts}; "
+        f"cuda detect {det_g:.3f} s track {trk_g:.3f} s; cpu detect {det_c:.3f} s track {trk_c:.3f} s"
+    )
+    print(f"merge slice stage_walls cuda: {json.dumps(tr_g.stage_walls)}")
+    print(f"merge slice stage_walls cpu: {json.dumps(tr_c.stage_walls)}")
+
+
+def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str) -> dict:
+    """Phase 5: config 1, then the merge path (config 4), at 3 yr x ny x nx
+    generated on ``device``, each with the kernels' launch counts set to 0
+    just before it and read just after. Prints each path's walls, counts and
+    memory; returns {path: launch counts}."""
+    t0 = time.perf_counter()
+    sst, coords = make_sst(3, ny, nx, seed, device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    print(f"data: {tuple(sst.shape)} generated on the card in {time.perf_counter() - t0:.1f} s")
+    T = sst.shape[0]
+    launches = {}
+    for merge in (False, True):
+        path = "merge path (config 4)" if merge else "config 1"
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launch_count = 0
+        ds, events, merges, tr, t_det, t_trk, detect_peak = run_slice(mx, sst, coords, device, ny, merge=merge)
+        launches[path] = {k: fn.launch_count for k, fn in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        thr, mask = ds["thresholds"].data, ds["mask"].data
+        if not bool(torch.isfinite(thr[mask]).all()):
+            raise AssertionError("non-finite thresholds over the ocean")
+        if merge:
+            n_events = check_merge_outputs(events, merges, T, ny, nx)
+        else:
+            n_events = int(events.attrs["N_events_final"])
+            ids = events["ID_field"].data
+            if tuple(ids.shape) != (T, ny, nx) or ids.dtype != torch.int32:
+                raise AssertionError(f"ID_field has shape {tuple(ids.shape)} and dtype {ids.dtype}")
+            if n_events <= 0 or int(ids.max()) != n_events or int(ids.min()) != 0:
+                raise AssertionError(f"ID_field range [{int(ids.min())}, {int(ids.max())}] vs N_events_final {n_events}")
+            del ids
+        print(
+            f"{path} {T} x {ny} x {nx}: detect {t_det:.3f} s, track {t_trk:.3f} s, "
+            f"{T * ny * nx / (t_det + t_trk):.4g} gridpoint-days/s"
+        )
+        print(f"  stage_walls: {json.dumps(tr.stage_walls)}")
+        print(f"  N_events_final: {n_events}; attrs: "
+              f"{json.dumps({k: v for k, v in events.attrs.items() if k.startswith('N_') or 'merge' in k})}")
+        if merge:
+            print(f"  dispatch_counts: {json.dumps(tr.dispatch_counts)}")
+        print(f"  ccl iterations: {json.dumps(tr.ccl_iterations)}")
+        print(f"  launch counts: {json.dumps(launches[path])}")
+        print(f"  max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB); after detect {detect_peak / 2**30:.2f} GiB")
+        print(f"  stage_peak_bytes (running max): {json.dumps(tr.stage_peak_bytes)}")
+        del ds, events, merges, tr, thr, mask
+    return launches
 
 
 def main() -> int:
@@ -171,7 +336,7 @@ def main() -> int:
     print(smi)
 
     import marex_tpu_torch as mx
-    from marex_tpu_torch import _cuda_build
+    from marex_tpu_torch import _cuda_build, _native
     from marex_tpu_torch.ops.min_stencil import (
         hook,
         hook_plain,
@@ -187,6 +352,10 @@ def main() -> int:
     for line in _cuda_build.last_build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    # the merge path's host union-find (csrc/marex_host.cpp, built by g++)
+    if not _native.has_native():
+        raise AssertionError("the host union-find library (csrc/marex_host.cpp) did not build")
+    print(f"native: {_native.get_lib()._name}")
 
     # ---- 3. kernels against their plain versions --------------------------
     g = torch.Generator(device="cuda")
@@ -266,71 +435,16 @@ def main() -> int:
         print(f"time {k} at {shape}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms")
     del lab, data, lab_new
 
-    # ---- 4. slice, CUDA against CPU, at 3 yr x 180 x 360 -------------------
-    ny, nx = 180, 360
-    sst, coords = make_sst(3, ny, nx, args.seed, "cuda")
-    sst_cpu = sst.cpu()
-    ds_g, ev_g, tr_g, det_g, trk_g, _ = run_slice(mx, sst, coords, "cuda", ny)
-    ds_c, ev_c, tr_c, det_c, trk_c, _ = run_slice(mx, sst_cpu, coords, "cpu", ny)
-    for key in ("extreme_events", "mask"):
-        if not np.array_equal(ds_g[key].values, ds_c[key].values):
-            raise AssertionError(f"mid-size slice: {key} differs between CUDA and CPU")
-    if not np.array_equal(ev_g["ID_field"].values, ev_c["ID_field"].values):
-        raise AssertionError("mid-size slice: ID_field differs between CUDA and CPU")
-    float_diff = {}
-    for key in ("dat_anomaly", "thresholds"):
-        a, b = ds_g[key].values, ds_c[key].values
-        if not np.array_equal(np.isnan(a), np.isnan(b)):
-            raise AssertionError(f"mid-size slice: {key} NaN pattern differs")
-        float_diff[key] = float(np.nanmax(np.abs(a - b))) if np.isfinite(a).any() else 0.0
-        if float_diff[key] > 1e-5:
-            raise AssertionError(f"mid-size slice: {key} differs by {float_diff[key]} > 1e-5")
-    n_attrs = {k: v for k, v in ev_g.attrs.items() if k.startswith("N_")}
-    if n_attrs != {k: v for k, v in ev_c.attrs.items() if k.startswith("N_")}:
-        raise AssertionError(f"mid-size slice: N_* attrs differ: {n_attrs} vs {ev_c.attrs}")
-    print(
-        f"slice 3yr x {ny} x {nx}: CUDA == CPU (extreme_events, mask, ID_field bit-identical; "
-        f"max |diff| dat_anomaly {float_diff['dat_anomaly']}, thresholds {float_diff['thresholds']}); "
-        f"{n_attrs}; cuda detect {det_g:.3f} s track {trk_g:.3f} s; cpu detect {det_c:.3f} s track {trk_c:.3f} s; "
-        f"ccl iterations cuda {tr_g.ccl_iterations} cpu {tr_c.ccl_iterations}"
-    )
-    del sst, sst_cpu, ds_g, ev_g, tr_g, ds_c, ev_c, tr_c
+    # ---- 4. both paths, CUDA against CPU, at 3 yr x 180 x 360 --------------
+    slices_against_cpu(mx, 180, 360, args.seed, "cuda")
+    torch.cuda.empty_cache()
 
-    # ---- 5. main path at full size ----------------------------------------
-    ny, nx = 720, 1440
-    t0 = time.perf_counter()
-    sst, coords = make_sst(3, ny, nx, args.seed, "cuda")
-    torch.cuda.synchronize()
-    print(f"data: {tuple(sst.shape)} generated on the card in {time.perf_counter() - t0:.1f} s")
-    T = sst.shape[0]
-    torch.cuda.reset_peak_memory_stats()
+    # ---- 5. both paths at full size ---------------------------------------
     kernels = {"min_stencil": min_stencil, "hook": hook, "pointer_jump": pointer_jump}
-    for fn in kernels.values():
-        fn.launch_count = 0
-    ds, events, tr, t_det, t_trk, detect_peak = run_slice(mx, sst, coords, "cuda", ny)
-    launches = {k: fn.launch_count for k, fn in kernels.items()}
-    peak = torch.cuda.max_memory_allocated()
-    n_events = int(events.attrs["N_events_final"])
-    ids = events["ID_field"].data
-    if tuple(ids.shape) != (T, ny, nx) or ids.dtype != torch.int32:
-        raise AssertionError(f"ID_field has shape {tuple(ids.shape)} and dtype {ids.dtype}")
-    if n_events <= 0 or int(ids.max()) != n_events or int(ids.min()) != 0:
-        raise AssertionError(f"ID_field range [{int(ids.min())}, {int(ids.max())}] vs N_events_final {n_events}")
-    thr, mask = ds["thresholds"].data, ds["mask"].data
-    if not bool(torch.isfinite(thr[mask]).all()):
-        raise AssertionError("non-finite thresholds over the ocean")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
-    print(
-        f"main path {T} x {ny} x {nx}: detect {t_det:.3f} s, track {t_trk:.3f} s, "
-        f"{T * ny * nx / (t_det + t_trk):.4g} gridpoint-days/s"
-    )
-    print(f"stage_walls: {json.dumps(tr.stage_walls)}")
-    print(f"N_events_final: {n_events}; attrs: {json.dumps({k: v for k, v in events.attrs.items() if k.startswith('N_')})}")
-    print(f"ccl iterations: {json.dumps(tr.ccl_iterations)}")
-    print(f"launch counts: {json.dumps(launches)}")
-    print(f"max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB); after detect {detect_peak / 2**30:.2f} GiB")
-    print(f"stage_peak_bytes (running max): {json.dumps(tr.stage_peak_bytes)}")
+    launches = main_paths(mx, 720, 1440, args.seed, kernels, "cuda")
+    for path, counts in launches.items():
+        if min(counts.values()) <= 0:
+            raise AssertionError(f"a kernel of the {path} was never launched: {counts}")
 
     replaces = {
         "min_stencil": "marex_tpu/ops/pallas_kernels.py:60",
@@ -343,7 +457,7 @@ def main() -> int:
             "route": "cuda",
             "source": "marex_tpu_torch/csrc/min_stencil.cu",
             "replaces": replaces[k],
-            "launches": launches[k],
+            "launches": launches["merge path (config 4)"][k],
             "max_abs_err": err[k],
             "ms": times[k][0],
             "plain_ms": times[k][1],

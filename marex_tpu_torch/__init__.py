@@ -7,15 +7,20 @@ The PyTorch port of ``marex_tpu``, with the same public entry points:
 >>> import marex_tpu_torch as marEx
 >>> ds = marEx.preprocess_data(sst, method_anomaly="fixed_baseline",
 ...                            method_extreme="global_extreme", device="cuda")
->>> events = marEx.tracker(ds.extreme_events, ds.mask, R_fill=12, T_fill=4,
-...                        area_filter_absolute=600, grid_resolution=0.25,
-...                        allow_merging=False).run()
+>>> events, merges = marEx.tracker(ds.extreme_events, ds.mask, R_fill=12, T_fill=4,
+...                                area_filter_absolute=600, grid_resolution=0.25,
+...                                allow_merging=True, nn_partitioning=True,
+...                                overlap_threshold=0.25).run(return_merges=True)
 
-Ported so far: the fixed-baseline / global-extreme detect path and gridded,
-global, no-merge tracking. Tensors stay on the device they were given;
-numpy inputs move to ``device`` (default ``"cuda"``). The connected-component
-labelling runs on hand-written CUDA kernels (``csrc/min_stencil.cu``),
-compiled with ``nvcc`` at first use.
+Ported so far: the fixed-baseline / global-extreme detect path, and
+gridded, global tracking without merging (3x3x3 event labelling) and with it
+(the split/merge march with nearest-cell or centroid partitioning, event
+clustering, per-event area, centroid, presence and merge ledger, and the
+merge records). Tensors stay on the device they were given; numpy inputs
+move to ``device`` (default ``"cuda"``). The connected-component labelling
+runs on hand-written CUDA kernels (``csrc/min_stencil.cu``), compiled with
+``nvcc`` at first use; event clustering uses the host union-find of
+``csrc/marex_host.cpp``, compiled with ``g++`` at first use.
 """
 
 from .core.field import Coord, Field, FieldSet, as_field, from_reference

@@ -1,0 +1,121 @@
+"""
+The host union-find of event clustering, from the repository's C++ runtime.
+
+``csrc/marex_host.cpp`` (shared with ``marex_tpu``, unchanged) is compiled
+with ``g++`` at first use into ``_build/`` (named by a hash of the source and
+flags, so an edited source is rebuilt) and loaded with ``ctypes``. The port
+needs its own loader because importing anything of ``marex_tpu`` imports
+JAX. Only ``marex_union_find`` is bound: the merge march's other host work is
+array code on the tracker's device.
+
+:func:`union_find_plain` is the numpy version (``marex_tpu/_native.py``'s
+fallback). Both number components by their smallest node position, so event
+ids do not depend on which one ran; :func:`union_find` takes the library when
+it builds and the numpy version otherwise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+
+from .logging_config import get_logger
+
+logger = get_logger(__name__)
+
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "marex_host.cpp"
+_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# no -march=native: a library built on one host must load on another
+_GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(_GXX_FLAGS).encode())
+    h.update(_SOURCE.read_bytes())
+    return _BUILD_DIR / f"libmarex_host_{h.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def get_lib() -> Optional[ctypes.CDLL]:
+    """The loaded host library (built if needed), or None when the source
+    or ``g++`` is missing or the build fails."""
+    if not _SOURCE.exists():
+        logger.warning(f"{_SOURCE} not found: the numpy union-find runs instead")
+        return None
+    lib_path = _library_path()
+    if not lib_path.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".tmp{os.getpid()}.so")
+        try:
+            subprocess.run(["g++", *_GXX_FLAGS, str(_SOURCE), "-o", str(tmp)], check=True, capture_output=True,
+                           timeout=300)
+        except (OSError, subprocess.SubprocessError) as e:
+            logger.warning(f"building {_SOURCE.name} failed ({e}): the numpy union-find runs instead")
+            return None
+        os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half a file
+    lib = ctypes.CDLL(str(lib_path))
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.marex_union_find.restype = None
+    lib.marex_union_find.argtypes = [i64p, i64p, ctypes.c_int64, i64p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32)]
+    return lib
+
+
+def has_native() -> bool:
+    return get_lib() is not None
+
+
+def union_find(edges: np.ndarray, node_ids: np.ndarray) -> np.ndarray:
+    """Connected components: edges (N, 2), node_ids (M,) -> (M,) int32
+    component index, numbered in order of each component's first node."""
+    lib = get_lib()
+    if lib is None:
+        return union_find_plain(edges, node_ids)
+    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    node_ids = np.ascontiguousarray(node_ids, dtype=np.int64)
+    ea = np.ascontiguousarray(edges[:, 0])
+    eb = np.ascontiguousarray(edges[:, 1])
+    comp = np.empty(len(node_ids), np.int32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.marex_union_find(
+        ea.ctypes.data_as(i64p),
+        eb.ctypes.data_as(i64p),
+        len(ea),
+        node_ids.ctypes.data_as(i64p),
+        len(node_ids),
+        comp.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    return comp
+
+
+def union_find_plain(edges: np.ndarray, node_ids: np.ndarray) -> np.ndarray:
+    """The numpy union-find (path compression, smaller root wins)."""
+    node_ids = np.asarray(node_ids, dtype=np.int64)
+    id_to_idx = {int(v): i for i, v in enumerate(node_ids)}
+    parent = np.arange(len(node_ids), dtype=np.int64)
+
+    def find(i: int) -> int:
+        root = i
+        while parent[root] != root:
+            root = parent[root]
+        while parent[i] != root:
+            parent[i], i = root, parent[i]
+        return root
+
+    for aa, bb in np.asarray(edges).reshape(-1, 2):
+        ia = id_to_idx.get(int(aa))
+        ib = id_to_idx.get(int(bb))
+        if ia is None or ib is None:
+            continue
+        ra, rb = find(ia), find(ib)
+        if ra != rb:
+            parent[max(ra, rb)] = min(ra, rb)
+    roots = np.array([find(i) for i in range(len(node_ids))], dtype=np.int64)
+    _, comp = np.unique(roots, return_inverse=True)
+    return comp.astype(np.int32).reshape(-1)

@@ -8,7 +8,11 @@ The port of the gridded entry points of ``marex_tpu/ops/label.py``:
   the area filter (:func:`slice_root_stats`);
 * 3-D spatio-temporal labelling with full 3x3x3 connectivity
   (:func:`label_spacetime_roots`) and its dense relabel in root order
-  (:func:`densify_spacetime_roots`).
+  (:func:`densify_spacetime_roots`);
+* for merge tracking: per-slice dense labels from the area filter's kept
+  roots (:func:`densify_slice_roots`), globally unique ids by cumulative
+  offsets (:func:`offset_labels`) and the full-field id remap
+  (:func:`remap_labels`).
 
 Every active cell starts labelled with its own flat index; each iteration
 runs the min-stencil kernel, the hook (each cell whose label fell lowers the
@@ -195,3 +199,76 @@ def densify_spacetime_roots(labf: torch.Tensor) -> Tuple[torch.Tensor, int]:
         rank = torch.searchsorted(roots, lv.long()).int() + 1
         dense[a : a + _CHUNK_CELLS] = torch.where(lv != BIG, rank, 0)
     return dense, int(roots.numel())
+
+
+def densify_slice_roots(
+    root_flat: torch.Tensor, root_ids: torch.Tensor, keep: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """
+    Per-slice dense labels from root labels: a cell whose root is the j-th
+    kept root of its slice (ascending) gets j + 1, every other cell 0 — the
+    ids of the reference's ``densify_slice_roots`` /
+    ``densify_slices_sorted`` on ``where(kept, root_flat, BIG)``. Runs over
+    time chunks of about ``_CHUNK_CELLS`` cells.
+
+    root_flat : (T, S) int32 root labels (BIG = background)
+    root_ids  : (T, n) int32 ascending per-slice root ids, BIG padded
+        (:func:`slice_root_stats`)
+    keep      : optional (T, n) bool, the roots to keep (default: all valid)
+
+    Returns (dense (T, S) int32, counts (T,) int64 kept objects per slice).
+    """
+    T, S = root_flat.shape
+    valid = root_ids != BIG
+    keep = valid if keep is None else keep & valid
+    t_of = torch.arange(T, device=root_flat.device)[:, None].expand_as(root_ids)
+    kept_keys = t_of[keep] * S + root_ids[keep].long()  # ascending: by slice, then root
+    counts = keep.sum(dim=1)
+    start = torch.cumsum(counts, 0) - counts  # kept objects before each slice
+    dense = torch.zeros((T, S), dtype=torch.int32, device=root_flat.device)
+    if kept_keys.numel() == 0:
+        return dense, counts
+    tb = max(1, _CHUNK_CELLS // max(S, 1))
+    for t0 in range(0, T, tb):
+        rows = root_flat[t0 : t0 + tb]
+        t_idx = torch.arange(t0, t0 + rows.shape[0], device=rows.device)[:, None]
+        key = t_idx * S + rows.long()
+        pos = torch.searchsorted(kept_keys, key.view(-1)).view(key.shape)
+        hit = (rows != BIG) & (kept_keys[pos.clamp_max(kept_keys.numel() - 1)] == key)
+        dense[t0 : t0 + tb] = torch.where(hit, pos - start[t_idx] + 1, 0).int()
+    return dense, counts
+
+
+def offset_labels(labels: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """
+    Make per-slice dense labels globally unique by cumulative offsets
+    (``marex_tpu.ops.label.offset_labels_across_time``): slice t's labels
+    shift by the number of objects in slices before it. In place, over time
+    chunks of about ``_CHUNK_CELLS`` cells; returns ``labels``.
+
+    labels : (T, ...) int32 per-slice dense labels (0 = background)
+    counts : (T,) per-slice object counts
+    """
+    T = labels.shape[0]
+    offsets = (torch.cumsum(counts, 0) - counts).to(device=labels.device, dtype=torch.int32)
+    shape = (T,) + (1,) * (labels.dim() - 1)
+    tb = max(1, _CHUNK_CELLS // max(labels[0].numel(), 1))
+    for t0 in range(0, T, tb):
+        rows = labels[t0 : t0 + tb]
+        rows.add_(torch.where(rows > 0, offsets[t0 : t0 + tb].view((-1,) + shape[1:]), 0))
+    return labels
+
+
+def remap_labels(lookup: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """
+    Full-field ``lookup[labels]`` (``marex_tpu.ops.label.remap_labels_donated``),
+    written over ``labels`` chunk by chunk: the old ids are dead after the
+    remap, so no second full-size field is held. Returns ``labels``.
+
+    lookup : (n,) int32 new id of each old id; labels : int32, values < n
+    """
+    flat = labels.view(-1)
+    for a in range(0, flat.numel(), _CHUNK_CELLS):
+        chunk = flat[a : a + _CHUNK_CELLS]
+        chunk.copy_(torch.index_select(lookup, 0, chunk))
+    return labels

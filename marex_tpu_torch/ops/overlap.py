@@ -1,0 +1,81 @@
+"""
+The temporal overlap graph of merge tracking.
+
+The port of the gridded parts of ``marex_tpu/ops/overlap.py`` and of the
+tracker's pair helpers (``consecutive_pairs_tiled``, ``compact_pairs``,
+``_pairs_dev``): for consecutive time slices, every (id at t, id at t+1)
+pair of objects that share cells, with the number of shared cells. Pair keys
+are int64 ``(t * K + a) * K + b`` on the device, sorted and counted by
+``torch.unique``, so the lists come out in ascending (t, a, b) order, as the
+reference's ascending keys do, and the reference's fall-back to host numpy
+when ``key_stride**2 >= 2**31`` has no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .._native import union_find
+
+# cells per chunk of the int64 keys
+_CHUNK_CELLS = 64 * 1024 * 1024
+
+
+def consecutive_pairs(
+    labels: torch.Tensor, key_stride: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """
+    Overlap triples between every consecutive slice pair of a label stack.
+
+    labels : (T, ...) int32 object ids (0 = background), all < key_stride
+
+    Returns (t, a, b, w) int64 tensors on the labels' device, sorted by
+    (t, a, b): object ``a`` at slice t shares ``w`` cells with object ``b``
+    at slice t + 1.
+    """
+    T = labels.shape[0]
+    S = labels[0].numel() if T else 0
+    K = int(key_stride)
+    if max(T - 1, 1) * K * K >= 2**63:
+        raise ValueError(f"pair keys overflow int64: T={T}, key_stride={K}")
+    flat = labels.reshape(T, S)
+    keys, counts = [], []
+    tb = max(1, _CHUNK_CELLS // max(S, 1))
+    for t0 in range(0, T - 1, tb):
+        n = min(tb, T - 1 - t0)
+        a, b = flat[t0 : t0 + n], flat[t0 + 1 : t0 + 1 + n]
+        t_idx = torch.arange(t0, t0 + n, device=labels.device)[:, None]
+        key = ((t_idx * K + a) * K + b)[(a > 0) & (b > 0)]
+        k, c = torch.unique(key, sorted=True, return_counts=True)
+        # on CUDA both outputs are views into buffers as long as ``key``:
+        # copies let those go (they held 14.3 GiB at full size)
+        keys.append(k.clone())
+        counts.append(c.clone())
+    if not keys:
+        z = torch.zeros(0, dtype=torch.int64, device=labels.device)
+        return z, z, z, z
+    key, w = torch.cat(keys), torch.cat(counts)
+    ab = key % (K * K)
+    return key // (K * K), ab // K, ab % K, w
+
+
+def slice_pairs(a: torch.Tensor, b: torch.Tensor, key_stride: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(a, b, w) overlap triples between two label slices, sorted by (a, b)
+    (the march's refresh of one slice pair)."""
+    _, pa, pb, pw = consecutive_pairs(torch.stack([a, b]), key_stride)
+    return pa, pb, pw
+
+
+def union_find_components(pairs: np.ndarray, node_ids: np.ndarray) -> np.ndarray:
+    """
+    Connected components of the overlap graph on the host (the C++
+    union-find of ``csrc/marex_host.cpp``, numpy when it cannot be built).
+
+    pairs : (N, 2) edges between node ids; node_ids : (M,) all node ids
+    Returns (M,) int32 component index (0..K-1), numbered in order of each
+    component's first node.
+    """
+    return union_find(np.asarray(pairs, dtype=np.int64).reshape(-1, 2), np.asarray(node_ids, dtype=np.int64))

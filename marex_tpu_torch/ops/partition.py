@@ -1,0 +1,234 @@
+"""
+Child partitioning of split/merge tracking on a regular grid.
+
+The port of the gridded parts of ``marex_tpu/ops/partition.py``: a child
+object that overlaps several parents is cut into one piece per parent, each
+cell going to the parent whose nearest cell is closest (an exact Euclidean
+distance transform, capped at a maximum distance) or, beyond the cap or in
+centroid mode, to the parent whose centroid is closest (periodic in x).
+Batch dimensions are written out where the reference used ``vmap``: the
+parents of a child along one axis and the children of a time step along the
+one before it. Padded parent slots carry ``parent_valid = False`` and count
+as infinitely far.
+
+Squared distances are integers below 2**24, so every exact method gives the
+reference's float32 values; ties in an argmin go to the lowest parent index,
+as in ``jnp.argmin``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from .properties import grid_mask_props
+
+_INF = float("inf")
+# bytes for the column pass's (masks, rows, H, W) float32 temporary
+_EDT_BLOCK_BYTES = 1 << 30
+
+
+def _argmin_parents(d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min, first index of the min) over the parent axis -3 of ``d``, as
+    elementwise passes over the few parents (a strided ``torch.argmin`` over
+    that axis is slow on the CPU). A strict ``<`` keeps the lowest index on
+    ties, as ``jnp.argmin`` does."""
+    best = d[..., 0, :, :]
+    idx = torch.zeros(best.shape, dtype=torch.int64, device=d.device)
+    for p in range(1, d.shape[-3]):
+        closer = d[..., p, :, :] < best
+        best = torch.where(closer, d[..., p, :, :], best)
+        idx.masked_fill_(closer, p)
+    return best, idx
+
+
+def centroid_assign_grid(
+    parent_centroids: torch.Tensor, parent_valid: torch.Tensor, shape: Tuple[int, int], wrap: bool = True
+) -> torch.Tensor:
+    """
+    Index of the nearest parent centroid for every cell of an (H, W) grid,
+    by Euclidean distance in pixels, with dx folded into [-W/2, W/2] when
+    ``wrap``: ``dy*dy + dx*dx`` in float32, in that order.
+
+    parent_centroids : (..., P, 2) float32 (cy, cx) pixel coordinates
+    parent_valid : (..., P) bool
+    Returns (..., H, W) int64 parent index.
+    """
+    H, W = shape
+    dev = parent_centroids.device
+    cy = parent_centroids[..., 0, None, None]
+    cx = parent_centroids[..., 1, None, None]
+    dy = torch.arange(H, dtype=torch.float32, device=dev)[:, None] - cy  # (..., P, H, 1)
+    dx = torch.arange(W, dtype=torch.float32, device=dev)[None, :] - cx  # (..., P, 1, W)
+    if wrap:
+        half = W / 2.0
+        dx = torch.where(dx > half, dx - W, dx)
+        dx = torch.where(dx < -half, dx + W, dx)
+    d2 = dy * dy + dx * dx
+    d2 = torch.where(parent_valid[..., None, None], d2, _INF)
+    return _argmin_parents(d2)[1]
+
+
+def _row_distance_periodic(mask: torch.Tensor, wrap: bool) -> torch.Tensor:
+    """
+    Distance in cells to the nearest True along the last axis, periodic when
+    ``wrap``: the last True at or before each cell and the next at or after
+    it (a cummax / cummin of indices), with the row's last and first True
+    standing in across the seam. mask : (..., W) bool -> float32 (inf where
+    the row is empty).
+    """
+    W = mask.shape[-1]
+    ar = torch.arange(W, device=mask.device)
+    far = 4 * W  # any value >= 2 W stands for "none"
+    last = torch.where(mask, ar, -1).cummax(dim=-1).values
+    nxt = torch.where(mask, ar, W).flip(-1).cummin(dim=-1).values.flip(-1)
+    fwd = torch.where(last >= 0, ar - last, far)
+    bwd = torch.where(nxt < W, nxt - ar, far)
+    if wrap:
+        any_ = last[..., -1:] >= 0
+        fwd = torch.where((last < 0) & any_, ar + W - last[..., -1:], fwd)
+        bwd = torch.where((nxt >= W) & any_, nxt[..., :1] + W - ar, bwd)
+    d = torch.minimum(fwd, bwd)
+    return torch.where(d >= 2 * W, _INF, d.float())
+
+
+def euclidean_distance_transform_grid(
+    parent_masks: torch.Tensor, wrap: bool = True, row_window: int = 0
+) -> torch.Tensor:
+    """
+    Exact squared Euclidean distance to the nearest True cell of each mask,
+    periodic in x when ``wrap``: the row distance, then a column pass
+    ``min over y of d_row(y)**2 + (y - y0)**2``.
+
+    parent_masks : (..., H, W) bool
+    row_window : when > 0 (and 2 * row_window + 1 < H), the column pass only
+        looks at rows within ``row_window`` of each output row; distances
+        beyond the window come out too large (or inf), which is exact for
+        every distance <= row_window — the merge march caps distances and
+        passes a window that covers the cap.
+
+    Returns (..., H, W) float32 squared distances (inf where a mask is empty).
+    """
+    lead = parent_masks.shape[:-2]
+    H, W = parent_masks.shape[-2:]
+    d1 = _row_distance_periodic(parent_masks, wrap).reshape(-1, H, W)
+    d1sq = d1 * d1
+    B = d1sq.shape[0]
+    if row_window and 2 * row_window + 1 < H:
+        out = d1sq.clone()
+        for dy in range(1, int(row_window) + 1):
+            torch.minimum(out[:, dy:], d1sq[:, :-dy] + float(dy * dy), out=out[:, dy:])
+            torch.minimum(out[:, :-dy], d1sq[:, dy:] + float(dy * dy), out=out[:, :-dy])
+        return out.view(*lead, H, W)
+    # only rows holding a cell of some mask can be nearest: the others are
+    # inf in every mask and drop out of the min
+    src = torch.isfinite(d1sq).any(dim=2).any(dim=0).nonzero().squeeze(1)
+    if src.numel() == 0:
+        return torch.full_like(d1sq, _INF).view(*lead, H, W)
+    d1src = d1sq[:, src]  # (B, n_src, W)
+    yy = torch.arange(H, dtype=torch.float32, device=d1sq.device)
+    dy2 = (src.float()[None, :] - yy[:, None]) ** 2  # (output row, source row)
+    out = torch.empty_like(d1sq)
+    rb = max(1, _EDT_BLOCK_BYTES // max(B * src.numel() * W * 4, 1))
+    for y0 in range(0, H, rb):
+        v = d1src[:, None] + dy2[y0 : y0 + rb, :, None]  # (B, rows, n_src, W)
+        out[:, y0 : y0 + rb] = v.amin(dim=2)
+        del v
+    return out.view(*lead, H, W)
+
+
+def partition_nn_grid(
+    child_mask: torch.Tensor,
+    parent_masks: torch.Tensor,
+    parent_valid: torch.Tensor,
+    parent_centroids: torch.Tensor,
+    max_distance: torch.Tensor,
+    wrap: bool = True,
+    row_window: int = 0,
+) -> torch.Tensor:
+    """
+    Assign every cell to its nearest parent cell (exact EDT, capped at
+    ``max_distance``), falling back to the nearest parent centroid for cells
+    beyond the cap. ``row_window`` must cover ``max_distance`` when nonzero.
+
+    child_mask : (..., H, W) bool (fixes the grid shape)
+    parent_masks : (..., P, H, W) bool; parent_valid : (..., P) bool
+    parent_centroids : (..., P, 2) float32; max_distance : (...) float32
+    Returns (..., H, W) int64 parent index.
+    """
+    H, W = child_mask.shape[-2:]
+    d = torch.sqrt(euclidean_distance_transform_grid(parent_masks, wrap, row_window))
+    d = torch.where(parent_valid[..., None, None], d, _INF)
+    d = torch.where(d <= max_distance[..., None, None, None], d, _INF)
+    dmin, assign = _argmin_parents(d)
+    reached = torch.isfinite(dmin)
+    fallback = centroid_assign_grid(parent_centroids, parent_valid, (H, W), wrap)
+    return torch.where(reached, assign, fallback)
+
+
+def partition_children_grid_batched(
+    prev_labels: torch.Tensor,
+    cur_labels: torch.Tensor,
+    child_ids: torch.Tensor,
+    piece_ids: torch.Tensor,
+    parent_ids: torch.Tensor,
+    parent_valid: torch.Tensor,
+    parent_cents: torch.Tensor,
+    max_dist: torch.Tensor,
+    nn: bool,
+    wrap: bool,
+    row_window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """
+    Partition all merging children of one march iteration at once. Children
+    are spatially disjoint and parents live in the unchanged previous slice,
+    so the batch equals the reference's per-child loop.
+
+    prev_labels, cur_labels : (H, W) int32 label slices at t-1 / t
+    child_ids    : (K,) int32 merging child ids (0 = inactive slot)
+    piece_ids    : (K, P) int32 replacement id per parent slot
+    parent_ids   : (K, P) int32 parent ids at t-1
+    parent_valid : (K, P) bool
+    parent_cents : (K, P, 2) float32 (y, x) pixel centroids
+    max_dist     : (K,) float32 nearest-cell search cap per child
+
+    Returns the updated (H, W) int32 current slice and the (K, P, 3) float32
+    (area, cy, cx) of every piece.
+    """
+    H, W = cur_labels.shape
+    K, P = parent_ids.shape
+    child_mask = (cur_labels[None] == child_ids[:, None, None]) & (child_ids > 0)[:, None, None]
+    if nn:
+        pmasks = (prev_labels[None, None] == parent_ids[..., None, None]) & parent_valid[..., None, None]
+        assign = partition_nn_grid(child_mask, pmasks, parent_valid, parent_cents, max_dist, wrap, row_window)
+        del pmasks
+    else:
+        assign = centroid_assign_grid(parent_cents, parent_valid, (H, W), wrap)
+    update = torch.where(child_mask, torch.gather(piece_ids, 1, assign.view(K, -1)).view(K, H, W), 0)
+    pieces = child_mask[:, None] & (assign[:, None] == torch.arange(P, device=assign.device)[None, :, None, None])
+    props = grid_mask_props(pieces, wrap)
+    upd = update.amax(dim=0)  # children are disjoint
+    return torch.where(upd > 0, upd, cur_labels), props
+
+
+def relabel_values_slice(labels: torch.Tensor, olds: Sequence[int], news: Sequence[int]) -> torch.Tensor:
+    """Apply (old -> new) id renames to one label slice, each against the
+    ORIGINAL values (callers resolve chains first); old ids of 0 are
+    padding and skipped."""
+    out = labels.clone()
+    for old, new in zip(olds, news):
+        if int(old) > 0:
+            out.masked_fill_(labels == int(old), int(new))
+    return out
+
+
+def relabel_and_props_slice(
+    labels: torch.Tensor, olds: Sequence[int], news: Sequence[int], targets: torch.Tensor, wrap: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Consolidation renames, then the (area, cy, cx) of each target id in
+    the renamed slice (targets of 0 are padding and give zeros).
+    Returns ((H, W) int32, (M, 3) float32)."""
+    out = relabel_values_slice(labels, olds, news)
+    masks = (out[None] == targets[:, None, None]) & (targets > 0)[:, None, None]
+    return out, grid_mask_props(masks, wrap)

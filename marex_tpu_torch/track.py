@@ -1,25 +1,36 @@
 """
 MarEx track on PyTorch: event identification and tracking.
 
-The port of ``marex_tpu/track.py`` for the main path: gridded, global
-(periodic in longitude) tracking without merging — morphological hole and
-gap filling, the area filter over per-slice connected components (with the
-reference's drop-first-object quirk), 3x3x3 spatio-temporal event labelling
-and the summary attributes. Both labellings run on the hand-written CUDA
-min-stencil, hook and pointer-jump kernels when the field lies on a GPU.
+The port of ``marex_tpu/track.py`` for gridded, global (periodic in
+longitude) tracking: morphological hole and gap filling, the area filter
+over per-slice connected components (with the reference's
+drop-first-object quirk), then either 3x3x3 spatio-temporal event labelling
+(``allow_merging=False``) or the split/merge march (``allow_merging=True``,
+the default): per-slice objects linked through their overlaps, merging
+children partitioned among their parents, and the objects clustered into
+events with per-event area, centroid, presence and merge ledger. The
+labellings run on the hand-written CUDA min-stencil, hook and pointer-jump
+kernels when the field lies on a GPU.
 
-``allow_merging=True``, ``unstructured_grid=True``, ``regional_mode=True``,
-``mesh`` and ``checkpoint`` raise ``NotImplementedError`` naming the ROADMAP
-item that brings them. Device placement is explicit: a torch tensor input
-keeps its device; numpy or ``Field`` payloads move to ``device``.
+The march follows the reference's per-step form
+(``tracker._split_and_merge_device``): its bookkeeping (thresholds,
+consolidation chains, new ids, the ledger) is host Python on small tables,
+and every full-field or per-slice array operation runs on the tracker's
+device.
+
+``unstructured_grid=True``, ``regional_mode=True``, ``mesh`` and
+``checkpoint`` raise ``NotImplementedError`` naming the ROADMAP item that
+brings them. Device placement is explicit: a torch tensor input keeps its
+device; numpy or ``Field`` payloads move to ``device``.
 """
 
 from __future__ import annotations
 
 import logging
 import time
+import weakref
 from contextlib import contextmanager
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,11 +40,15 @@ from .exceptions import ConfigurationError, TrackingError, create_coordinate_err
 from .logging_config import configure_logging, get_logger, log_array_info, log_memory_usage, log_timing
 from .ops import label as _label
 from .ops import morphology as _morph
+from .ops import overlap as _overlap
+from .ops import partition as _part
+from .ops import properties as _props
 
 logger = get_logger(__name__)
 
+MAX_PARENTS = 10  # parent capacity per merge event
+
 _NOT_PORTED = {
-    "allow_merging": "ROADMAP queue 1, item 5 (merge tracking)",
     "unstructured_grid": "ROADMAP queue 1, item 9 (unstructured meshes)",
     "regional_mode": "ROADMAP queue 1, item 8 (regional mode)",
     "mesh": "ROADMAP queue 1, item 11 (multi-GPU)",
@@ -45,10 +60,64 @@ def _is_bool(data: Any) -> bool:
     return data.dtype == torch.bool if isinstance(data, torch.Tensor) else np.dtype(data.dtype) == np.bool_
 
 
+class _SliceStore:
+    """
+    The merge march's label field on the device. A rewritten slice is
+    written into the field at once (the reference keeps overrides because
+    its arrays are immutable), so ``flush`` only hands the field back.
+    """
+
+    def __init__(self, labels: torch.Tensor):
+        self.dev = labels
+
+    @property
+    def T(self) -> int:
+        return self.dev.shape[0]
+
+    def get_dev(self, t: int) -> torch.Tensor:
+        return self.dev[t]
+
+    def set_dev(self, t: int, sl: torch.Tensor) -> None:
+        self.dev[t] = sl
+
+    def flush(self) -> torch.Tensor:
+        return self.dev
+
+
+class ObjectTable:
+    """Host registry of per-object properties: id -> (area, cy, cx)."""
+
+    def __init__(self) -> None:
+        self._rows: Dict[int, Tuple[float, float, float]] = {}
+
+    def add(self, oid: int, area: float, c0: float, c1: float) -> None:
+        self._rows[int(oid)] = (float(area), float(c0), float(c1))
+
+    def drop(self, oid: int) -> None:
+        self._rows.pop(int(oid), None)
+
+    def __contains__(self, oid: int) -> bool:
+        return int(oid) in self._rows
+
+    def area(self, oid: int) -> float:
+        return self._rows[int(oid)][0]
+
+    def centroid(self, oid: int) -> Tuple[float, float]:
+        _, c0, c1 = self._rows[int(oid)]
+        return (c0, c1)
+
+    def max_id(self) -> int:
+        return max(self._rows.keys(), default=0)
+
+    def ids(self) -> np.ndarray:
+        return np.array(sorted(self._rows.keys()), dtype=np.int64)
+
+
 class tracker:
     """
     Identify and track binary objects through time (API-compatible with
-    ``marex_tpu.tracker``; gridded, global, no-merge tracking is ported).
+    ``marex_tpu.tracker``; gridded, global tracking with and without merging
+    is ported).
 
     ``data_bin`` / ``mask`` may be Fields (of this package or duck-typed
     equivalents) with numpy or torch payloads; ``device`` places payloads
@@ -85,7 +154,6 @@ class tracker:
         device: Union[str, torch.device] = "cuda",
     ) -> None:
         for name, value in (
-            ("allow_merging", allow_merging),
             ("unstructured_grid", unstructured_grid),
             ("regional_mode", regional_mode),
             ("mesh", mesh is not None),
@@ -95,6 +163,16 @@ class tracker:
                 raise NotImplementedError(f"{name} is not ported to marex_tpu_torch yet: {_NOT_PORTED[name]}")
         if verbose is not None or quiet is not None:
             configure_logging(verbose=verbose, quiet=quiet)
+        if merge_ledger_mode not in ("reference", "siblings"):
+            raise ConfigurationError(
+                f"Invalid merge_ledger_mode '{merge_ledger_mode}'",
+                details="merge_ledger_mode selects the merge_ledger fill scheme",
+                suggestions=[
+                    "Use 'reference' (default) for the reference's scheme: each merging parent's own id broadcast over sibling slots",
+                    "Use 'siblings' for the richer scheme recording the full merge-partner list per parent",
+                ],
+            )
+        self.merge_ledger_mode = merge_ledger_mode
 
         logger.info("Initialising MarEx tracker (PyTorch)")
         logger.info(
@@ -108,7 +186,8 @@ class tracker:
 
         self.regional_mode = False
         self.unstructured_grid = False
-        self.allow_merging = False
+        self.allow_merging = allow_merging
+        self.nn_partitioning = nn_partitioning
         self.coordinate_units = coordinate_units
 
         dimensions = dimensions or {}
@@ -148,6 +227,7 @@ class tracker:
                 ],
                 context={"overlap_threshold": overlap_threshold},
             )
+        self.overlap_threshold = float(overlap_threshold)
 
         self.lat = np.asarray(self.data_bin.coords[self.ycoord].values, dtype=np.float64)
         self.lon = np.asarray(self.data_bin.coords[self.xcoord].values, dtype=np.float64)
@@ -165,6 +245,11 @@ class tracker:
         #: value is the one that set the peak
         self.stage_peak_bytes: Dict[str, int] = {}
         self.ccl_iterations: Dict[str, int] = {}
+        #: device calls of the merge march by kind: "pairs" (one slice pair's
+        #: overlaps refreshed), "consolidate", "partition"
+        self.dispatch_counts: Dict[str, int] = {}
+        # the area filter's per-slice roots, kept for the merge path's labels
+        self._label_reuse = None
 
         # ---- cell areas -------------------------------------------------
         ny, nx = len(self.lat), len(self.lon)
@@ -342,8 +427,10 @@ class tracker:
     # Main public pipeline
     # ------------------------------------------------------------------
 
-    def run(self, return_merges: bool = False, checkpoint: Optional[str] = None) -> FieldSet:
-        """Run preprocessing, tracking and statistics; returns the events FieldSet."""
+    def run(self, return_merges: bool = False, checkpoint: Optional[str] = None):
+        """Run preprocessing, tracking and statistics; returns the events
+        FieldSet, or ``(events, merges)`` with ``return_merges`` when
+        merging is on."""
         if checkpoint:
             raise NotImplementedError(f"checkpoint is not ported to marex_tpu_torch yet: {_NOT_PORTED['checkpoint']}")
         logger.info("Starting complete tracking pipeline")
@@ -360,16 +447,20 @@ class tracker:
             events_ds = self.run_stats_attributes(events_ds, merges_ds, object_stats, N_events_final)
 
         logger.info(f"Tracking pipeline completed successfully - {N_events_final} events identified")
+        if self.allow_merging and return_merges:
+            return events_ds, merges_ds
         return events_ds
 
     @contextmanager
     def _stage_ctx(self, name: str):
         """Accumulate the wall time of a pipeline substage into
         ``self.stage_walls``. A stage that ran on CUDA ends with a
-        synchronise, so its device work is inside its own wall."""
+        synchronise, so its device work is inside its own wall. The stage is
+        also a ``torch.profiler`` range of the same name."""
         t0 = time.perf_counter()
         try:
-            yield
+            with torch.profiler.record_function(name):
+                yield
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
                 self.stage_peak_bytes[name] = torch.cuda.max_memory_allocated(self.device)
@@ -444,6 +535,14 @@ class tracker:
             first = root_flat[t_first] == root_ids[t_first, 0]
             filtered[t_first].logical_and_(~first)
             out = filtered.view(data.shape)
+        if self.allow_merging:
+            # Area filtering drops whole components, so the filtered field's
+            # per-slice roots are the kept ones of root_flat: the merge path
+            # densifies these instead of labelling the field again. The keep
+            # table repeats filter/apply's float32 compare.
+            keep = slot & (areas_tj >= np.float32(area_threshold))
+            keep[t_first, 0] = False
+            self._label_reuse = (weakref.ref(out), root_flat, root_ids, torch.from_numpy(keep).to(root_ids.device))
         return out, area_threshold, object_areas, N_prefiltered, N_filtered
 
     def run_preprocess(self):
@@ -489,8 +588,13 @@ class tracker:
     # ------------------------------------------------------------------
 
     def run_tracking(self, data_bin_preprocessed: torch.Tensor):
-        """Label events as 3x3x3-connected components in (time, y, x);
-        returns ``(events_ds, merges_ds, N_events)``."""
+        """Track objects through time; returns ``(events_ds, merges_ds,
+        N_events)``. Without merging, events are the 3x3x3-connected
+        components in (time, y, x); with it, the split/merge march."""
+        if self.allow_merging:
+            events_ds, merges_ds, N_events = self.track_objects(data_bin_preprocessed)
+            logger.info("Finished tracking all extreme events!")
+            return events_ds, merges_ds, N_events
         with self._stage_ctx("ccl3d"):
             labf, iters = _label.label_spacetime_roots(data_bin_preprocessed, wrap_x=True)
             dense, N_events = _label.densify_spacetime_roots(labf)
@@ -501,6 +605,436 @@ class tracker:
         events_ds = FieldSet({"ID_field": Field(labels, dims, self.data_bin.coords, name="ID_field")})
         logger.info("Finished tracking all extreme events!")
         return events_ds, FieldSet(), N_events
+
+    # -- merge tracking --------------------------------------------------
+
+    def _label_slices(self, data: torch.Tensor) -> Tuple[torch.Tensor, np.ndarray]:
+        """Per-slice dense labels 1..n_t in ascending-root order, and the
+        counts n_t. When ``data`` is the very field the area filter returned,
+        its kept roots are densified (single use); otherwise the slices are
+        labelled afresh."""
+        cache, self._label_reuse = self._label_reuse, None
+        if cache is not None and cache[0]() is data:
+            _, root_flat, root_ids, keep = cache
+        else:
+            root_flat, _, iters = _label.label_slices_grid_roots(data, wrap_x=True)
+            self.ccl_iterations["ccl"] = iters
+            root_ids, _, _, _ = _label.slice_root_stats(root_flat)
+            keep = None
+        del cache
+        dense, counts = _label.densify_slice_roots(root_flat, root_ids, keep)
+        return dense.view(data.shape), counts.cpu().numpy()
+
+    def track_objects(self, data_bin: torch.Tensor):
+        """Split/merge-aware tracking: per-slice objects, the march, then the
+        event clustering. Returns ``(events_ds, merge_events, N_events)``."""
+        with self._stage_ctx("ccl"):
+            labels, counts = self._label_slices(data_bin)
+        offsets = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+        with self._stage_ctx("march"):
+            with self._stage_ctx("march/props"):
+                object_table = self._compute_props_for_labels(labels, counts, offsets)
+            logger.info("Finished calculating object properties")
+            labels = _label.offset_labels(labels, torch.from_numpy(counts))
+            logger.info(f"Finished assigning {int(counts.sum())} globally unique object IDs")
+            labels, object_table, overlap_list, merge_events = self._split_and_merge_device(
+                _SliceStore(labels), object_table
+            )
+        logger.info("Finished splitting and merging objects")
+        with self._stage_ctx("rename"):
+            events_ds, N_events = self._cluster_rename(labels, object_table, overlap_list, merge_events)
+        logger.info("Finished clustering and renaming objects into coherent consistent events")
+        return events_ds, merge_events, N_events
+
+    def _compute_props_for_labels(self, labels: torch.Tensor, counts: np.ndarray, offsets: np.ndarray) -> ObjectTable:
+        """The object table of per-slice dense labels: object k of slice t
+        gets id offsets[t] + k."""
+        L = int(counts.max()) if counts.size else 0
+        table = ObjectTable()
+        if L == 0:
+            return table
+        areas, c0, c1 = (x.cpu().numpy() for x in _props.grid_label_props(labels, L, wrap=True))
+        for t in range(labels.shape[0]):
+            for k in range(1, int(counts[t]) + 1):
+                table.add(int(offsets[t]) + k, float(areas[t, k]), float(c0[t, k]), float(c1[t, k]))
+        return table
+
+    def _enforce_threshold(self, pairs: np.ndarray, table: ObjectTable) -> np.ndarray:
+        """The pairs whose overlap is at least ``overlap_threshold`` of the
+        smaller object's area."""
+        if len(pairs) == 0:
+            return pairs.reshape(0, 3)
+        keep = []
+        for a, b, w in pairs:
+            ia, ib = int(a), int(b)
+            if ia not in table or ib not in table:
+                continue
+            min_area = min(table.area(ia), table.area(ib))
+            if min_area > 0 and (w / min_area) >= self.overlap_threshold:
+                keep.append((a, b, w))
+        return np.array(keep, dtype=np.float64).reshape(-1, 3)
+
+    def _count_dispatch(self, kind: str) -> None:
+        self.dispatch_counts[kind] = self.dispatch_counts.get(kind, 0) + 1
+
+    def _per_slice_pairs_device(self, labels: torch.Tensor) -> List[np.ndarray]:
+        """(id_a, id_b, w) triples for every consecutive slice pair, one
+        (n, 3) float64 host array per pair, in ascending (a, b) order."""
+        T = labels.shape[0]
+        if T < 2:
+            return []
+        t, a, b, w = _overlap.consecutive_pairs(labels, int(labels.max()) + 2)
+        triples = torch.stack([a, b, w], dim=1).double().cpu().numpy()
+        bounds = np.searchsorted(t.cpu().numpy(), np.arange(T))
+        return [triples[bounds[i] : bounds[i + 1]] for i in range(T - 1)]
+
+    def _pairs_dev(self, a_dev: torch.Tensor, b_dev: torch.Tensor, key_stride: int) -> np.ndarray:
+        """Overlap triples of one slice pair, counted on the device."""
+        self._count_dispatch("pairs")
+        pa, pb, pw = _overlap.slice_pairs(a_dev, b_dev, key_stride)
+        return torch.stack([pa, pb, pw], dim=1).double().cpu().numpy()
+
+    def _all_overlaps(self, labels: torch.Tensor) -> np.ndarray:
+        """Overlap pairs of all consecutive slices, as one sorted list."""
+        return _merge_pair_lists(self._per_slice_pairs_device(labels))
+
+    def _consolidate_slice_device(self, store: _SliceStore, table: ObjectTable, back: np.ndarray, t_slice: int,
+                                  invalidate) -> None:
+        """(t-2 -> t-1) consolidation: the children a parent at t-2 links to
+        at t-1 are renamed to the first of them. The ordered renames are
+        composed on the host (chains resolved), applied in one relabel, and
+        the surviving targets' properties recomputed in the same call —
+        the semantics of the reference's sequential per-child loop."""
+        parents, counts_p = np.unique(back[:, 0], return_counts=True)
+        renames: List[Tuple[int, int]] = []
+        ren_dict: Dict[int, int] = {}
+        changed_targets: List[int] = []
+        for parent_id in parents[counts_p > 1]:
+            if int(parent_id) not in table:
+                continue
+            children = back[back[:, 0] == parent_id, 1].astype(np.int64)
+            first = int(children[0])
+            if first not in table:
+                continue
+            changed = False
+            for child in children[1:]:
+                child = int(child)
+                if child not in table:
+                    continue
+                renames.append((child, first))
+                ren_dict[child] = first
+                table.drop(child)
+                changed = True
+            if changed:
+                changed_targets.append(first)
+        if not renames:
+            return
+        self._count_dispatch("consolidate")
+
+        def resolve(x: int) -> int:
+            seen = set()
+            while x in ren_dict and x not in seen:
+                seen.add(x)
+                x = ren_dict[x]
+            return x
+
+        olds = [o for o, _ in renames]
+        news = [resolve(o) for o, _ in renames]
+        final_targets = sorted({resolve(f) for f in changed_targets})
+        sl = store.get_dev(t_slice)
+        sl, tprops = _part.relabel_and_props_slice(
+            sl, olds, news, torch.tensor(final_targets, dtype=torch.int32, device=sl.device), True
+        )
+        store.set_dev(t_slice, sl)
+        tp = tprops.cpu().numpy()
+        for i, fid in enumerate(final_targets):
+            if tp[i, 0] > 0:
+                table.add(int(fid), float(tp[i, 0]), float(tp[i, 1]), float(tp[i, 2]))
+        invalidate(t_slice)
+
+    def _split_and_merge_device(self, store: _SliceStore, table: ObjectTable):
+        """
+        The split/merge march over time steps, with the reference's
+        semantics and order: consolidation of t-1 against t-2, then up to 10
+        iterations per step in which every child linked to several parents
+        is partitioned among them (all such children of an iteration in one
+        device call), new ids allocated in pair-list order, and the overlap
+        pairs of the touched slices refreshed on the device.
+        """
+        T = store.T
+        with self._stage_ctx("march/pairs"):
+            pair_cache: List[Optional[np.ndarray]] = self._per_slice_pairs_device(store.dev)
+
+        merge_times: List[Any] = []
+        merge_child_ids: List[np.ndarray] = []
+        merge_parent_ids: List[np.ndarray] = []
+        merge_areas: List[np.ndarray] = []
+        next_new_id = int(table.max_id()) + 1
+        time_values = np.asarray(self.data_bin.coords[self.timecoord].values)
+
+        def get_pairs(t: int) -> np.ndarray:
+            if pair_cache[t] is None:
+                with self._stage_ctx("march/pairs"):
+                    pair_cache[t] = self._pairs_dev(store.get_dev(t), store.get_dev(t + 1), next_new_id + 1)
+            return pair_cache[t]
+
+        def invalidate(t: int) -> None:
+            if 0 <= t - 1 < T - 1:
+                pair_cache[t - 1] = None
+            if 0 <= t < T - 1:
+                pair_cache[t] = None
+
+        def consolidate(back: np.ndarray, t_slice: int) -> None:
+            with self._stage_ctx("march/consolidate"):
+                self._consolidate_slice_device(store, table, back, t_slice, invalidate)
+
+        for t in range(T):
+            # -- consolidation of t-1 using t-2 --------------------------
+            if t > 1:
+                back = self._enforce_threshold(get_pairs(t - 2), table)
+                if len(back):
+                    consolidate(back, t - 1)
+            if t == 0:
+                continue
+
+            # -- per-timestep merge resolution ---------------------------
+            for _ in range(10):
+                cur = self._enforce_threshold(get_pairs(t - 1), table)
+                if len(cur) == 0:
+                    break
+                children, child_counts = np.unique(cur[:, 1], return_counts=True)
+                merging = children[child_counts > 1]
+                if len(merging) == 0:
+                    break
+
+                batch: List[Tuple[int, np.ndarray, np.ndarray]] = []
+                for child_id in merging:
+                    child_id = int(child_id)
+                    rows_idx = np.nonzero(cur[:, 1] == child_id)[0]
+                    rows = cur[rows_idx]
+                    if len(rows) < 2:
+                        continue
+                    parent_ids = rows[:, 0].astype(np.int64)
+                    n_parents = len(parent_ids)
+                    if n_parents > MAX_PARENTS:
+                        raise TrackingError(
+                            "Too many parent objects for tracking",
+                            details=f"Child {child_id} has {n_parents} parents (limit: {MAX_PARENTS})",
+                            suggestions=[
+                                "Increase overlap_threshold to reduce fragmentation",
+                                "Apply stronger area filtering",
+                            ],
+                            context={"child_id": child_id, "n_parents": int(n_parents), "limit": MAX_PARENTS},
+                        )
+                    new_ids = np.arange(next_new_id, next_new_id + n_parents - 1, dtype=np.int64)
+                    next_new_id += n_parents - 1
+                    child_ids = np.concatenate([[child_id], new_ids]).astype(np.int64)
+                    cur[rows_idx[1:], 1] = new_ids  # in-place rewiring
+
+                    merge_times.append(time_values[t])
+                    merge_child_ids.append(child_ids)
+                    merge_parent_ids.append(parent_ids)
+                    merge_areas.append(rows[:, 2])
+                    batch.append((child_id, parent_ids, child_ids))
+
+                if batch:
+                    with self._stage_ctx("march/partition"):
+                        self._partition_batch(store, table, batch, t)
+                invalidate(t)
+            else:
+                logger.warning(f"Resolving mergers at timestep {t} did not converge after 10 iterations")
+
+        # end-of-series consolidation
+        if T >= 2:
+            back = self._enforce_threshold(get_pairs(T - 2), table)
+            if len(back):
+                consolidate(back, T - 1)
+
+        labels = store.flush()
+        with self._stage_ctx("march/overlaps"):
+            overlap_list = self._enforce_threshold(self._all_overlaps(labels), table)
+
+        if len(overlap_list):
+            uc, cc = np.unique(overlap_list[:, 1], return_counts=True)
+            dups = uc[cc > 1]
+            if len(dups):
+                logger.warning(
+                    f"There are {len(dups)} children with multiple parents after splitting/merging "
+                    "(expected for disjoint objects grouped by the overlap logic)"
+                )
+
+        merge_events = _build_merge_events(merge_times, merge_child_ids, merge_parent_ids, merge_areas)
+        return labels, table, overlap_list[:, :2] if len(overlap_list) else np.empty((0, 2)), merge_events
+
+    def _partition_batch(self, store: _SliceStore, table: ObjectTable, batch, t: int) -> None:
+        """Cut each merging child of slice t among its parents at t-1 (one
+        device call for the batch) and enter every piece in the table."""
+        K = len(batch)
+        P = max(len(par) for _, par, _ in batch)
+        child_arr = np.zeros(K, np.int32)
+        piece = np.zeros((K, P), np.int32)
+        pids = np.zeros((K, P), np.int32)
+        valid = np.zeros((K, P), bool)
+        cents = np.zeros((K, P, 2), np.float32)
+        mdist = np.zeros(K, np.float32)
+        for i, (cid, par, cids) in enumerate(batch):
+            n = len(par)
+            child_arr[i] = cid
+            piece[i, :n] = cids
+            pids[i, :n] = par
+            valid[i, :n] = True
+            cents[i, :n] = np.array([table.centroid(int(p)) for p in par], np.float32)
+            if self.nn_partitioning:
+                max_area = max(table.area(int(p)) for p in par)
+                mdist[i] = float(max(int(np.sqrt(max_area) * 3.0), 40))
+        self._count_dispatch("partition")
+        cur = store.get_dev(t)
+        H = cur.shape[0]
+        # a row window covering the batch's largest cap lets the EDT's
+        # column pass look only at nearby rows (exact for capped distances)
+        row_window = 0
+        if self.nn_partitioning and mdist.max() > 0:
+            win = 1 << max(0, int(np.ceil(np.log2(max(float(mdist.max()), 1.0)))))
+            row_window = 0 if 2 * win + 1 >= H else win
+        dev = cur.device
+        new_cur, piece_props = _part.partition_children_grid_batched(
+            store.get_dev(t - 1),
+            cur,
+            *(torch.from_numpy(x).to(dev) for x in (child_arr, piece, pids, valid, cents, mdist)),
+            self.nn_partitioning,
+            True,
+            row_window,
+        )
+        store.set_dev(t, new_cur)
+        pp = piece_props.cpu().numpy()  # (K, P, 3)
+        for i, (_, _, cids) in enumerate(batch):
+            for j, pid_new in enumerate(cids):
+                pid_new = int(pid_new)
+                area, cyv, cxv = float(pp[i, j, 0]), float(pp[i, j, 1]), float(pp[i, j, 2])
+                if area > 0:
+                    table.add(pid_new, area, cyv, cxv)
+                elif j == 0:
+                    table.drop(pid_new)
+                    logger.info(f"Deleted child_id {pid_new} because parents have split/morphed")
+                else:
+                    logger.warning(f"Missing newly created child_id {pid_new} because parents have split/morphed")
+
+    def _cluster_rename(self, labels: torch.Tensor, table: ObjectTable, overlap_list: np.ndarray,
+                        merge_events: FieldSet):
+        """Cluster the overlap graph into events (host union-find), then on
+        the device: the (time, ID) table of original ids, the full-field
+        remap to event ids (over the old ids, in place), and the per-time
+        event statistics. Returns ``(events_ds, N_events)``."""
+        field_ids = table.ids()
+        if len(overlap_list):
+            overlap_ids = np.unique(overlap_list.astype(np.int64))
+            overlap_ids = overlap_ids[overlap_ids > 0]
+            all_ids = np.unique(np.concatenate([field_ids.astype(np.int64), overlap_ids]))
+        else:
+            all_ids = field_ids.astype(np.int64)
+        logger.info(f"Found {len(all_ids)} valid object IDs")
+
+        comp = _overlap.union_find_components(overlap_list, all_ids)
+        n_events = int(comp.max()) + 1 if len(comp) else 0
+        logger.info(f"Identified {n_events} connected components (events)")
+
+        with self._stage_ctx("rename/max"):
+            max_id = max(int(labels.max()), int(all_ids.max()) if len(all_ids) else 0)
+        lookup = np.zeros(max_id + 2, dtype=np.int32)
+        lookup[all_ids] = comp.astype(np.int32) + 1
+        lookup_dev = torch.from_numpy(lookup).to(labels.device)
+
+        T = labels.shape[0]
+        N = n_events
+        # the (time, ID) table first, from the old ids; then the remap over them
+        with self._stage_ctx("rename/gid"):
+            global_id = _props.event_global_id_lookup(labels, lookup_dev, N)
+        with self._stage_ctx("rename/remap"):
+            new_field = _label.remap_labels(lookup_dev, labels)
+        del labels
+
+        presence = global_id > 0
+        time_vals = np.asarray(self.data_bin.coords[self.timecoord].values)
+        first_idx = torch.argmax(presence.byte(), dim=0).cpu().numpy()
+        last_idx = T - 1 - torch.argmax(presence.flip(0).byte(), dim=0).cpu().numpy()
+        time_start = time_vals[first_idx]
+        time_end = time_vals[last_idx]
+
+        with self._stage_ctx("rename/stats"):
+            areas, clat, clon = self._event_stats(new_field, N)
+
+        # merge ledger (time, ID, sibling_ID): 'reference' writes each merging
+        # parent's own event id across its sibling slots (a participation
+        # marker; the genealogy is in merges_ds); 'siblings' the full list of
+        # merge partners
+        have_merges = "parent_IDs" in merge_events.data_vars and merge_events["parent_IDs"].shape[0] > 0
+        sibling = int(merge_events["parent_IDs"].shape[1]) if have_merges else MAX_PARENTS
+        ledger = np.full((T, N + 1, sibling), -1, dtype=np.int32)
+        if have_merges:
+            pids = merge_events["parent_IDs"].values
+            mtimes = merge_events["merge_time"].values
+            time_to_idx = {v: i for i, v in enumerate(time_vals)}
+            for m in range(pids.shape[0]):
+                tixd = time_to_idx.get(mtimes[m])
+                if tixd is None:
+                    continue
+                parents_old = pids[m][pids[m] > 0]
+                parents_new = lookup[np.clip(parents_old, 0, max_id + 1)]
+                parents_new = parents_new[parents_new > 0]
+                if self.merge_ledger_mode == "reference":
+                    for pn in parents_new:
+                        ledger[tixd, pn, :] = pn
+                else:
+                    for pn in parents_new:
+                        k = min(len(parents_new), sibling)
+                        ledger[tixd, pn, :k] = parents_new[:k]
+
+        tdims = (self.timedim,)
+        sdims = (self.ydim, self.xdim)
+        coords = dict(self.data_bin.coords)
+        id_coord = Coord("ID", np.arange(1, N + 1, dtype=np.int32))
+        events_ds = FieldSet(
+            {
+                "ID_field": Field(new_field, tdims + sdims, coords, name="ID_field"),
+                "global_ID": Field(global_id[:, 1:], (self.timedim, "ID"), {**coords, "ID": id_coord}, name="global_ID"),
+                "area": Field(areas[:, 1:], (self.timedim, "ID"), {**coords, "ID": id_coord}, name="area"),
+                "centroid": Field(
+                    torch.stack([clat[:, 1:], clon[:, 1:]], dim=0),
+                    ("component", self.timedim, "ID"),
+                    {**coords, "ID": id_coord, "component": Coord("component", np.array([0, 1]))},
+                    name="centroid",
+                ),
+                "presence": Field(presence[:, 1:], (self.timedim, "ID"), {**coords, "ID": id_coord}, name="presence"),
+                "time_start": Field(time_start[1:], ("ID",), {"ID": id_coord}, name="time_start"),
+                "time_end": Field(time_end[1:], ("ID",), {"ID": id_coord}, name="time_end"),
+                "merge_ledger": Field(
+                    ledger[:, 1:, :],
+                    (self.timedim, "ID", "sibling_ID"),
+                    {**coords, "ID": id_coord, "sibling_ID": Coord("sibling_ID", np.arange(sibling))},
+                    name="merge_ledger",
+                ),
+            },
+            attrs={},
+        )
+        return events_ds, N
+
+    def _event_stats(self, event_field: torch.Tensor, n_events: int):
+        """Physical areas and area-weighted (lat, lon) centroids per (time,
+        event), NaN where the event is absent; (T, n_events + 1) float32 on
+        the field's device."""
+        dev = event_field.device
+        if n_events == 0:
+            z = torch.zeros((event_field.shape[0], 1), dtype=torch.float32, device=dev)
+            return z, z.clone(), z.clone()
+        areas, cy, cx = _props.grid_label_props(event_field, n_events, wrap=True,
+                                                cell_weights=torch.from_numpy(self.cell_area).to(dev))
+        cy = _props.interp_coord(cy, torch.from_numpy(self.lat.astype(np.float32)).to(dev))
+        cx = _props.interp_coord(cx, torch.from_numpy(self.lon.astype(np.float32)).to(dev))
+        present = areas > 0
+        nan = torch.tensor(float("nan"), device=dev)
+        clat = torch.where(present, cy, nan)
+        clon = torch.where(present, cx, nan)
+        return torch.where(present, areas, nan), clat, clon
 
     # ------------------------------------------------------------------
     # Stage 3: statistics & attributes
@@ -543,13 +1077,100 @@ class tracker:
         print(f"   Accepted Area Fraction: {accepted_area_fraction}")
         print(f"   Total Events Tracked: {N_events_final}")
 
+        if self.allow_merging:
+            events_ds.attrs["overlap_threshold"] = self.overlap_threshold
+            events_ds.attrs["nn_partitioning"] = int(self.nn_partitioning)
+            n_merges = merges_ds["n_parents"].shape[0] if "n_parents" in merges_ds.data_vars else 0
+            events_ds.attrs["total_merges"] = int(n_merges)
+            if n_merges:
+                events_ds.attrs["multi_parent_merges"] = int((merges_ds["n_parents"].values > 2).sum())
+            else:
+                events_ds.attrs["multi_parent_merges"] = 0
+            print(f"   Total Merging Events Recorded: {events_ds.attrs['total_merges']}")
+
         events_ds.attrs.update(self.data_attrs)
         return self._remap_coordinates(events_ds)
 
     def _remap_coordinates(self, events_ds: FieldSet) -> FieldSet:
-        """Restore the original coordinate values (units and ranges)."""
+        """Restore the original coordinate values (units and ranges), and
+        express centroids in them."""
         ydims = events_ds.coords[self.ycoord].dims if self.ycoord in events_ds.coords else (self.ydim,)
         xdims = events_ds.coords[self.xcoord].dims if self.xcoord in events_ds.coords else (self.xdim,)
         events_ds.coords[self.ycoord] = Coord(ydims, self.lat_init)
         events_ds.coords[self.xcoord] = Coord(xdims, self.lon_init)
+
+        if "centroid" in events_ds.data_vars:
+            f = events_ds["centroid"]
+            clat, clon = f.data[0], f.data[1]
+            lon_min = float(np.min(self.lon_init))
+            lon_max = float(np.max(self.lon_init))
+            if self.coordinate_units == "radians":
+                clat = clat * np.pi / 180.0
+                clon = clon * np.pi / 180.0
+                if lon_min >= 0 and lon_max > np.pi:
+                    clon = torch.where(clon < 0, clon + 2 * np.pi, clon)
+            elif lon_min >= 0 and lon_max > 180:
+                clon = torch.where(clon < 0, clon + 360, clon)
+            cent = torch.stack([clat, clon], dim=0).float()
+            events_ds["centroid"] = Field(cent, f.dims, f.coords, name="centroid")
         return events_ds
+
+
+def _merge_pair_lists(lists: List[np.ndarray]) -> np.ndarray:
+    """One (N, 3) list of per-slice pair lists, sorted by (a, b), with the
+    weights of repeated pairs summed."""
+    lists = [x for x in lists if len(x)]
+    if not lists:
+        return np.empty((0, 3), dtype=np.float64)
+    allp = np.concatenate(lists)
+    key = allp[:, 0].astype(np.int64) * np.int64(2**31) + allp[:, 1].astype(np.int64)
+    uniq, inv = np.unique(key, return_inverse=True)
+    sums = np.zeros(len(uniq))
+    np.add.at(sums, inv, allp[:, 2])
+    return np.column_stack([uniq // 2**31, uniq % 2**31, sums]).astype(np.float64)
+
+
+def _build_merge_events(
+    merge_times: List[Any],
+    merge_child_ids: List[np.ndarray],
+    merge_parent_ids: List[np.ndarray],
+    merge_areas: List[np.ndarray],
+) -> FieldSet:
+    """The padded merge-events dataset (-1 fill): parent and child ids,
+    overlap areas (int64, truncated like the reference's int32), merge time
+    and the parent and child counts of every merge."""
+    if merge_parent_ids and merge_child_ids:
+        max_parents = max(len(x) for x in merge_parent_ids)
+        max_children = max(len(x) for x in merge_child_ids)
+    else:
+        max_parents = 1
+        max_children = 1
+    n = len(merge_parent_ids)
+    parent_arr = np.full((n, max_parents), -1, np.int32)
+    child_arr = np.full((n, max_children), -1, np.int32)
+    areas_arr = np.full((n, max_parents), -1, np.int64)
+    for i, p in enumerate(merge_parent_ids):
+        parent_arr[i, : len(p)] = p
+    for i, c in enumerate(merge_child_ids):
+        child_arr[i, : len(c)] = c
+    for i, a in enumerate(merge_areas):
+        a = np.nan_to_num(np.asarray(a, dtype=np.float64), nan=-1.0, posinf=-1.0, neginf=-1.0)
+        areas_arr[i, : len(a)] = a
+
+    mid = Coord("merge_ID", np.arange(n))
+    mt = np.array(merge_times) if n else np.array([], dtype="datetime64[ns]")
+    return FieldSet(
+        {
+            "parent_IDs": Field(parent_arr, ("merge_ID", "parent_idx"), {"merge_ID": mid}, name="parent_IDs"),
+            "child_IDs": Field(child_arr, ("merge_ID", "child_idx"), {"merge_ID": mid}, name="child_IDs"),
+            "overlap_areas": Field(areas_arr, ("merge_ID", "parent_idx"), {"merge_ID": mid}, name="overlap_areas"),
+            "merge_time": Field(mt, ("merge_ID",), {"merge_ID": mid}, name="merge_time"),
+            "n_parents": Field(
+                np.array([len(p) for p in merge_parent_ids], np.int8), ("merge_ID",), {"merge_ID": mid}, name="n_parents"
+            ),
+            "n_children": Field(
+                np.array([len(c) for c in merge_child_ids], np.int8), ("merge_ID",), {"merge_ID": mid}, name="n_children"
+            ),
+        },
+        attrs={"fill_value": -1},
+    )

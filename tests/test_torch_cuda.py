@@ -1,7 +1,7 @@
-"""The port's CUDA kernels and its config-1 slice on the card: each kernel
-against its plain PyTorch version, and the slice on CUDA against the slice on
-the CPU. Every test needs a CUDA device (and ``nvcc`` to build the kernels)
-and skips without one.
+"""The port's CUDA kernels, its config-1 slice and its merge tracking on the
+card: each kernel against its plain PyTorch version, and each path on CUDA
+against the same path on the CPU. Every test needs a CUDA device (and
+``nvcc`` to build the kernels) and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch; ``--noconftest`` keeps out ``tests/conftest.py``,
@@ -24,6 +24,8 @@ from marex_tpu_torch.ops.min_stencil import (
     pointer_jump,
     pointer_jump_plain,
 )
+
+from .torch_parity import merge_dense_field
 
 DETECT_FIXED = dict(method_anomaly="fixed_baseline", method_extreme="global_extreme", threshold_percentile=95)
 TRACK_SMALL = dict(R_fill=2, T_fill=2, area_filter_absolute=8, allow_merging=False)
@@ -93,3 +95,36 @@ def test_slice_on_cuda_matches_cpu():
     np.testing.assert_allclose(c_ds["dat_anomaly"].values, g_ds["dat_anomaly"].values, rtol=0, atol=1e-5)
     np.testing.assert_allclose(c_ds["thresholds"].values, g_ds["thresholds"].values, rtol=0, atol=1e-5)
     assert g_ev.attrs == c_ev.attrs and g_ev.attrs["N_events_final"] > 0
+
+
+@pytest.mark.cuda
+def test_merge_on_cuda_matches_cpu():
+    """Merge tracking (nearest-cell partitioning) on the merge-dense field:
+    integer outputs and merge records bit-identical, area and centroid
+    within 1e-5."""
+    _need_cuda()
+    data = merge_dense_field()
+    T, H, W = data.shape
+    coords = {
+        "time": np.datetime64("2000-01-01", "ns") + np.arange(T) * np.timedelta64(1, "D"),
+        "lat": np.linspace(-60, 60, H),
+        "lon": np.linspace(0, 360, W, endpoint=False),
+    }
+    out = {}
+    for device in ("cpu", "cuda"):
+        ev = port.Field(torch.from_numpy(data).to(device), ("time", "lat", "lon"), coords, name="extreme_events")
+        mask = port.Field(torch.ones((H, W), dtype=torch.bool, device=device), ("lat", "lon"),
+                          {"lat": coords["lat"], "lon": coords["lon"]}, name="mask")
+        tr = port.tracker(ev, mask, R_fill=2, T_fill=0, area_filter_quartile=0.0, allow_merging=True,
+                          nn_partitioning=True, overlap_threshold=0.3, device=device, quiet=True)
+        out[device] = tr.run(return_merges=True), tr
+    (c_ev, c_mg), _ = out["cpu"]
+    (g_ev, g_mg), g_tr = out["cuda"]
+    for name in ("ID_field", "global_ID", "presence", "merge_ledger", "time_start", "time_end"):
+        assert np.array_equal(c_ev[name].values, g_ev[name].values), name
+    for name in ("area", "centroid"):
+        np.testing.assert_allclose(c_ev[name].values, g_ev[name].values, rtol=1e-5, atol=1e-5, err_msg=name)
+    for name in ("parent_IDs", "child_IDs", "overlap_areas", "merge_time", "n_parents", "n_children"):
+        assert np.array_equal(c_mg[name].values, g_mg[name].values), name
+    assert g_ev.attrs == c_ev.attrs and g_ev.attrs["total_merges"] > 0
+    assert g_ev["ID_field"].data.is_cuda and g_tr.dispatch_counts["partition"] > 0

@@ -149,7 +149,7 @@ def test_fixpoint_raises_when_it_does_not_converge(monkeypatch):
 @pytest.mark.parametrize(
     "kw, item",
     [
-        (dict(allow_merging=True), "item 5"),
+        (dict(merge_ledger_mode="bogus"), None),
         (dict(unstructured_grid=True), "item 9"),
         (dict(regional_mode=True), "item 8"),
         (dict(mesh=True), "item 11"),
@@ -159,6 +159,13 @@ def test_fixpoint_raises_when_it_does_not_converge(monkeypatch):
 def test_unported_tracker_options_name_their_roadmap_item(kw, item):
     ev, mask = bool_fields(_field(FEW), np.ones(FEW[1:3], bool))
     args = dict(R_fill=1, area_filter_absolute=4, allow_merging=False, device="cpu")
+    if item is None:  # merging is ported: a bad ledger mode fails alike in both packages
+        with pytest.raises(ref.ConfigurationError) as r:
+            ref.tracker(ev, mask, R_fill=1, area_filter_absolute=4, **kw)
+        with pytest.raises(port.ConfigurationError) as p:
+            port.tracker(from_reference(ev, "cpu"), from_reference(mask, "cpu"), **{**args, **kw})
+        assert p.value.message == r.value.message
+        return
     with pytest.raises(NotImplementedError, match=item):
         port.tracker(from_reference(ev, "cpu"), from_reference(mask, "cpu"), **{**args, **kw})
 

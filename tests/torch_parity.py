@@ -5,6 +5,10 @@ Inputs are made with numpy from a seed and handed to both packages; the port
 runs with ``device="cpu"``, i.e. through the plain PyTorch versions of its
 kernels. The contract: boolean and integer fields bit-identical, float fields
 within 1e-5 (the anomaly tolerance of ``BASELINE.json``), attrs equal.
+
+The module imports no JAX itself (the reference's ``Field`` is imported where
+it is used), so ``tests/test_torch_cuda.py`` can take its inputs from here on
+a machine without JAX.
 """
 
 from __future__ import annotations
@@ -12,8 +16,6 @@ from __future__ import annotations
 import numpy as np
 import pandas as pd
 import torch
-
-from marex_tpu.core.field import Field
 
 DETECT_FIXED = dict(
     method_anomaly="fixed_baseline",
@@ -26,8 +28,10 @@ TRACK_SMALL = dict(R_fill=2, T_fill=2, area_filter_absolute=8, allow_merging=Fal
 FLOAT_ATOL = 1e-5
 
 
-def drive_sst(seed: int = 0, n_years: int = 3, ny: int = 24, nx: int = 48) -> Field:
+def drive_sst(seed: int = 0, n_years: int = 3, ny: int = 24, nx: int = 48):
     """The verify drive: daily AR(1) SST, 3 yr x 24 x 48, with a land block."""
+    from marex_tpu.core.field import Field
+
     rng = np.random.default_rng(seed)
     times = pd.date_range("2000-01-01", periods=n_years * 365, freq="D").to_numpy()
     T = len(times)
@@ -58,8 +62,30 @@ def blob_field(seed: int, T: int, H: int, W: int, n_blobs: int, r_max: int = 6) 
     return data
 
 
+def merge_dense_field(T: int = 60, n_pairs: int = 5, seed: int = 3, ny: int = 48, nx: int = 180) -> np.ndarray:
+    """(T, ny, nx) bool field of disk pairs (radius 5, periodic in x) that
+    converge, merge and separate every 20 steps: the merge-dense recipe of
+    ``tests/test_scan_march.py:merge_dense_field``."""
+    data = np.zeros((T, ny, nx), bool)
+    yy, xx = np.mgrid[0:ny, 0:nx]
+    rng = np.random.default_rng(seed)
+    centers = [(int(rng.integers(ny // 5, 4 * ny // 5)), int(rng.integers(0, nx))) for _ in range(n_pairs)]
+    r = 5
+    for t in range(T):
+        phase = (t % 20) / 20.0
+        sep = int((1.0 - min(phase * 2, 1.0)) * 3 * r) + r
+        for cy, cx0 in centers:
+            for s in (-sep, sep):
+                cx = (cx0 + s) % nx
+                dx = np.minimum(np.abs(xx - cx), nx - np.abs(xx - cx))
+                data[t] |= (yy - cy) ** 2 + dx**2 <= r * r
+    return data
+
+
 def bool_fields(data: np.ndarray, mask: np.ndarray):
     """``(extreme_events, mask)`` reference Fields on a global 0..360 grid."""
+    from marex_tpu.core.field import Field
+
     T, H, W = data.shape
     coords = {
         "time": pd.date_range("2000-01-01", periods=T, freq="D").to_numpy(),
