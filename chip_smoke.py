@@ -8,9 +8,13 @@ Phases, each of which raises (and so exits nonzero) on failure:
 1. device: the card's name and its power limit from ``nvidia-smi``;
 2. build: the CUDA kernels, compiled from ``marex_tpu_torch/csrc`` by ``nvcc``;
 3. kernels against their plain PyTorch versions on the card: bit-identical
-   (tolerance 0) over masked/plain modes, ``wrap_x`` on and off, per-slice
-   and whole-block slice sizes, random masks, ragged shapes and the main
-   path's own shape 1095 x 720 x 1440; then both timed at (64, 720, 1440);
+   (tolerance 0) over the stencil's modes (masked, plain), the fused CCL
+   step in both depths (per slice, and 3x3x3 over the block) with ``out``
+   BIG-filled and stale, its convergence flag, ``wrap_x`` on and off, the
+   jump per slice and over the block, random masks, ragged widths and the
+   main path's own shape 1095 x 720 x 1440; then each timed at
+   (64, 720, 1440) on random labels, beside its plain version and the
+   nearest single PyTorch call;
 4. both paths at 3 yr x 180 x 360, on CUDA and on the CPU (plain
    versions): config 1 (no merging) with boolean and integer outputs
    bit-identical and floats within 1e-5; then config 4 (merging, nearest-cell
@@ -25,11 +29,20 @@ Phases, each of which raises (and so exits nonzero) on failure:
    nn_partitioning=True, overlap_threshold=0.25`` and
    ``run(return_merges=True)`` (config 4, the main path). Each path is run
    with the kernels' launch counts set to 0 just before it and read just
-   after.
+   after;
+6. the kernels on the main path's own labels: the area filter's fixpoint on
+   phase 5's field, run by hand with each launch timed, and at its
+   iterations 1, 6 and 12 the fused step and the jump timed beside the
+   nearest single PyTorch calls and beside the unfused iteration as far as
+   this tree still has it (the stencil alone, a clone, the jump and a full
+   comparison: the iteration before the fusion without its hook kernel),
+   which the fused iteration must beat.
 
 The line before the last is a JSON object with each kernel's launches on the
-merge path of phase 5, its largest difference from the plain version and
-both times; the last line is ``{"ok": true, "device": {...}}``.
+merge path of phase 5, its largest difference from the plain version, and
+its time, its plain version's, its bound and the nearest PyTorch call's on
+the main path's own labels (phase 6, iteration 6); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -136,6 +149,114 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_fresh(fn, reset, reps: int = 5) -> float:
+    """Mean milliseconds of ``fn`` by CUDA events around each call alone,
+    with ``reset`` (untimed) before each: for a kernel that updates its
+    output in place. One untimed warm-up."""
+    total = 0.0
+    for rep in range(reps + 1):
+        reset()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if rep:
+            total += start.elapsed_time(end)
+    return total / reps
+
+
+# the H100 SXM data sheet's 3.35 TB/s, in bytes per millisecond
+HBM_BYTES_PER_MS = 3.35e9
+
+
+def bound_ms(n_bytes: float) -> float:
+    """Least time to move ``n_bytes`` through device memory once."""
+    return n_bytes / HBM_BYTES_PER_MS
+
+
+class Split:
+    """CUDA-event milliseconds of launches by name: each launch's, and their sums."""
+
+    def __init__(self):
+        self.pending, self.ms, self.each = [], {}, {}
+
+    def time(self, name: str, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        self.pending.append((name, start, end))
+        return out
+
+    def settle(self) -> None:
+        torch.cuda.synchronize()
+        for name, start, end in self.pending:
+            self.ms[name] = self.ms.get(name, 0.0) + start.elapsed_time(end)
+            self.each.setdefault(name, []).append(round(start.elapsed_time(end), 4))
+        self.pending.clear()
+
+
+def fused_fixpoint(data: torch.Tensor, depth3: bool, split: Split, keep=()):
+    """A CCL fixpoint of ``ops/label.py`` run by hand, each launch timed
+    into ``split``; returns (iterations, {k: (labels, out) before step k}
+    for k in ``keep``)."""
+    from marex_tpu_torch.ops.min_stencil import ccl_step, pointer_jump
+
+    T, H, W = data.shape
+    S = T * H * W if depth3 else H * W
+    idx = torch.arange(S, dtype=torch.int32, device=data.device)
+    a = (idx if depth3 else idx.repeat(T)).view(T, H, W).masked_fill_(~data, BIG)
+    b = torch.full_like(a, BIG)
+    del idx
+    snaps = {}
+    for it in range(1, 200):
+        if it in keep:
+            snaps[it] = (a.clone(), b.clone())
+        flag = split.time("ccl_step", lambda: ccl_step(a, data, b, depth3=depth3))
+        changed = bool(flag.item())
+        split.settle()
+        if not changed:
+            return it, snaps
+        split.time("pointer_jump", lambda: pointer_jump(b, S, out=a))
+    raise AssertionError("CCL fixpoint did not converge in 199 iterations")
+
+
+def filter_input(mx, seed: int):
+    """The area filter's input on the main path at 3 yr x 720 x 1440 (the
+    field after fill_spatial and fill_time, the same on config 1 and config
+    4), through the entry points; returns (field, config 1's tracker)."""
+    sst, coords = make_sst(3, 720, 1440, seed, "cuda")
+    ds = mx.preprocess_data(mx.Field(sst, ("time", "lat", "lon"), coords, name="sst"), device="cuda", quiet=True,
+                            **DETECT_FIXED)
+    del sst
+    tr = mx.tracker(ds.extreme_events, ds.mask, device="cuda", quiet=True, **track_kwargs(720))
+    del ds
+    filled = tr.fill_time_gaps(tr.fill_holes(tr.data_bin.data)).contiguous()
+    torch.cuda.synchronize()
+    return filled, tr
+
+
+def neg_padded(lab: torch.Tensor, wrap_x: bool = True, depth3: bool = False) -> torch.Tensor:
+    """-lab as float32 (exact below 2**24; BIG becomes -2**31), padded by one
+    ring of -inf (x wrapped when ``wrap_x``): the input on which one
+    max-pool call gives -(3x3-min), or with ``depth3`` -(3x3x3-min)."""
+    x = -lab.float()
+    if wrap_x:
+        x = torch.cat([x[..., -1:], x, x[..., :1]], dim=-1)
+    else:
+        x = torch.nn.functional.pad(x, (1, 1), value=float("-inf"))
+    x = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1) if depth3 else (0, 0, 1, 1), value=float("-inf"))
+    return x[None, None] if depth3 else x[:, None]
+
+
+def hook_scatter_inputs(lab: torch.Tensor, m: torch.Tensor, slice_size: int):
+    """(index, source) of the hook's scatter, as ``hook_plain`` forms them."""
+    lab_f, m_f = lab.reshape(-1), m.reshape(-1)
+    pos = ((lab_f != BIG) & (m_f < lab_f)).nonzero().squeeze(1)
+    return pos - pos % slice_size + lab_f[pos].long(), m_f[pos]
 
 
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor, chunk: int = 1 << 26) -> int:
@@ -319,6 +440,78 @@ def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str) -> d
     return launches
 
 
+def main_path_labels(mx, seed: int) -> dict:
+    """Phase 6: the area filter's fixpoint on the main path's field, run by
+    hand with each launch timed; at its iterations 1, 6 and 12 the fused
+    step and the jump timed beside the nearest single PyTorch calls (never
+    called by the port) and beside the unfused iteration as far as this
+    tree has it (stencil alone, clone, jump, full comparison: the iteration
+    before the fusion without its hook kernel), which the fused one must
+    beat. Returns the JSON fields of both kernels at iteration 6."""
+    from marex_tpu_torch.ops.min_stencil import ccl_step, ccl_step_plain, min_stencil, pointer_jump, pointer_jump_plain
+
+    data, _ = filter_input(mx, seed)
+    T, H, W = data.shape
+    S, N = H * W, data.numel()
+    split = Split()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iters, snaps = fused_fixpoint(data, False, split, keep=(1, 6, 12))
+    wall = time.perf_counter() - t0
+    print(f"filter fixpoint on the main path's field ({int(data.sum())} active cells): {iters} iterations, "
+          f"wall {wall:.4f} s; summed launch ms {json.dumps(split.ms)}")
+    print(f"  each launch (ms): {json.dumps(split.each)}")
+    result = {}
+    out = torch.empty_like(data, dtype=torch.int32)
+    for k in sorted(snaps):
+        a, b = snaps.pop(k)
+        hooked = b.clone()
+        ccl_step(a, data, hooked)  # the step's result: the jump's input
+        t_step = cuda_ms_fresh(lambda: ccl_step(a, data, out), lambda: out.copy_(b))
+        t_jump = cuda_ms(lambda: pointer_jump(hooked, S, out=out), reps=5)
+
+        def unfused():
+            new = pointer_jump(min_stencil(a, data).clone(), S)
+            return torch.equal(new, a)
+
+        t_unfused = cuda_ms(unfused, reps=5)
+        t_alone = cuda_ms(lambda: min_stencil(a, data), reps=5)  # the same kernel with plain stores, no hook
+        xp = neg_padded(a)
+        t_pool = cuda_ms(lambda: torch.nn.functional.max_pool2d(xp, 3, stride=1), reps=5)
+        del xp
+        flat = hooked.view(T, S)
+        gidx = torch.where(flat != BIG, flat, 0).long()
+        t_gather = cuda_ms(lambda: torch.gather(flat, 1, gidx), reps=5)
+        del gidx
+        m = min_stencil(a, data)
+        sidx, src = hook_scatter_inputs(a, m, S)
+        buf = m.clone().view(-1)
+        t_scatter = cuda_ms_fresh(lambda: buf.scatter_reduce_(0, sidx, src, "amin"), lambda: buf.copy_(m.view(-1)))
+        n_hooks = sidx.numel()
+        del m, sidx, src, buf
+        print(f"iteration {k}: ccl_step {t_step:.4f} ms + pointer_jump {t_jump:.4f} ms = {t_step + t_jump:.4f} ms; "
+              f"unfused without its hook kernel {t_unfused:.4f} ms; stencil alone {t_alone:.4f} ms; yardsticks "
+              f"max_pool2d {t_pool:.4f} ms, gather {t_gather:.4f} ms, hook scatter_reduce amin {t_scatter:.4f} ms; "
+              f"{n_hooks} cells with m < lab; bounds: step {bound_ms(9 * N):.4f} ms, jump {bound_ms(8 * N):.4f} ms")
+        if t_step + t_jump >= t_unfused:
+            raise AssertionError(f"iteration {k}: the fused iteration is not faster than the unfused one")
+        if k == 6:
+            torch.cuda.empty_cache()
+            result = {
+                "ccl_step": dict(
+                    ms=t_step, plain_ms=cuda_ms_fresh(lambda: ccl_step_plain(a, data, out), lambda: out.copy_(b), reps=1),
+                    bound_ms=bound_ms(9 * N), bound_by="bytes", library_ms=t_pool,
+                ),
+                "pointer_jump": dict(
+                    ms=t_jump, plain_ms=cuda_ms(lambda: pointer_jump_plain(hooked, S), reps=2),
+                    bound_ms=bound_ms(8 * N), bound_by="bytes", library_ms=t_gather,
+                ),
+            }
+        del a, b, hooked
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -338,12 +531,13 @@ def main() -> int:
     import marex_tpu_torch as mx
     from marex_tpu_torch import _cuda_build, _native
     from marex_tpu_torch.ops.min_stencil import (
-        hook,
-        hook_plain,
+        ccl_step,
+        ccl_step_plain,
         min_stencil,
         min_stencil_plain,
         pointer_jump,
         pointer_jump_plain,
+        spacetime_min_plain,
     )
 
     # ---- 2. build ---------------------------------------------------------
@@ -360,7 +554,7 @@ def main() -> int:
     # ---- 3. kernels against their plain versions --------------------------
     g = torch.Generator(device="cuda")
     g.manual_seed(args.seed)
-    err = {"min_stencil": 0, "hook": 0, "pointer_jump": 0}
+    err = {"ccl_step": 0, "pointer_jump": 0}
     n_checks = 0
 
     def check(k: str, kernel, plain, what: str) -> None:
@@ -374,83 +568,122 @@ def main() -> int:
         err[k] = max(err[k], diff)
         n_checks += 1
 
-    # ragged shapes, then the main path's own shape (3 yr x 720 x 1440), at
-    # which its CCLs call every kernel: per slice (slice_size H*W) and over
-    # the whole block (T*H*W)
-    cases = [(s, (0.1, 0.6)) for s in [(5, 7, 13), (3, 720, 1440), (1, 1, 5), (2, 3, 1), (9, 33, 64)]]
+    def check_step(lab, data, depth3: bool, wrap_x: bool, out0: torch.Tensor, what: str) -> None:
+        """The fused step against its plain version from copies of out0:
+        output and flag."""
+        nonlocal n_checks
+        out_k, out_p = out0.clone(), out0.clone()
+        flag_k = ccl_step(lab, data, out_k, depth3=depth3, wrap_x=wrap_x)
+        flag_p = ccl_step_plain(lab, data, out_p, depth3=depth3, wrap_x=wrap_x)
+        diff = max(max_abs_diff(out_k, out_p), abs(int(flag_k) - int(flag_p)))
+        del out_k, out_p
+        if diff:
+            raise AssertionError(f"ccl_step {what}: max diff {diff}")
+        n_checks += 1
+
+    # ragged widths (13, 5, 1, 70), partial strips (W = 132) and the main
+    # path's own shape (3 yr x 720 x 1440), at which its CCLs call every
+    # kernel: per slice (hook slice H*W) and over the whole block (T*H*W)
+    cases = [(s, (0.1, 0.6)) for s in [(5, 7, 13), (3, 720, 1440), (1, 1, 5), (2, 3, 1), (9, 33, 64), (3, 17, 70),
+                                       (2, 9, 132)]]
     cases.append(((int(3 * 365.25), 720, 1440), (0.6,)))
     for shape, densities in cases:
         T, H, W = shape
         for density in densities:
             data = torch.rand(shape, generator=g, device="cuda") < density
-            for slice_size in (H * W, T * H * W):
+            for depth3 in (False, True):
+                slice_size = T * H * W if depth3 else H * W
                 lab = torch.randint(0, slice_size, shape, generator=g, device="cuda", dtype=torch.int32)
                 lab.masked_fill_(~data & (torch.rand(shape, generator=g, device="cuda") < 0.5), BIG)
                 what = f"{shape} density={density}"
-                if slice_size == H * W:
+                if not depth3:
                     for masked in (True, False):
                         for wrap_x in (True, False):
                             d = data if masked else None
                             check(
-                                "min_stencil",
+                                "ccl_step",
                                 lambda: min_stencil(lab, d, masked=masked, wrap_x=wrap_x),
                                 lambda: min_stencil_plain(lab, d, masked=masked, wrap_x=wrap_x),
-                                f"{what} masked={masked} wrap_x={wrap_x}",
+                                f"{what} min_stencil masked={masked} wrap_x={wrap_x}",
                             )
-                what = f"{what} slice_size={slice_size}"
+                for wrap_x in (True, False):
+                    out0 = torch.full_like(lab, BIG)
+                    check_step(lab, data, depth3, wrap_x, out0, f"{what} depth3={depth3} wrap_x={wrap_x} out=BIG")
+                    # a stale field >= m, as the previous iteration's hooked field is
+                    out0 = spacetime_min_plain(lab, data, wrap_x) if depth3 else min_stencil_plain(lab, data, True, wrap_x)
+                    up = torch.randint(0, 3, shape, generator=g, device="cuda", dtype=torch.int32)
+                    out0 = torch.where(out0 >= BIG - 2, out0, out0 + up)
+                    del up
+                    check_step(lab, data, depth3, wrap_x, out0, f"{what} depth3={depth3} wrap_x={wrap_x} out=stale")
+                    del out0
                 check("pointer_jump", lambda: pointer_jump(lab, slice_size),
-                      lambda: pointer_jump_plain(lab, slice_size), what)
-                lab_new = torch.where(lab == BIG, BIG, torch.minimum(lab, lab.flip(-1)))
-                check("hook", lambda: hook(lab, lab_new, slice_size), lambda: hook_plain(lab, lab_new, slice_size),
-                      what)
-                del lab, lab_new
+                      lambda: pointer_jump_plain(lab, slice_size), f"{what} slice_size={slice_size}")
+                del lab
             del data
-    torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
     print(f"kernels: {n_checks} checks bit-identical to the plain versions (tolerance 0), "
           f"up to the main path's shape {cases[-1][0]}")
 
+    # each kernel at (64, 720, 1440) on random labels, beside its plain
+    # version and the nearest single PyTorch call (never called by the port)
     shape = (64, 720, 1440)
+    N = 64 * 720 * 1440
     lab = torch.randint(0, 720 * 1440, shape, generator=g, device="cuda", dtype=torch.int32)
     data = torch.rand(shape, generator=g, device="cuda") < 0.3
-    lab_new = torch.minimum(lab, lab.flip(-1))
-    times = {
-        "min_stencil": (
+    lab3 = torch.randint(0, N, shape, generator=g, device="cuda", dtype=torch.int32)
+    out = torch.empty_like(lab)
+    big = torch.full_like(lab, BIG)
+    xp, xp3 = neg_padded(lab), neg_padded(lab3, depth3=True)
+    flat = lab.view(64, -1)
+    gidx = flat.long()
+    random_times = {
+        "ccl_step 2-D": (
+            cuda_ms_fresh(lambda: ccl_step(lab, data, out), lambda: out.copy_(big)),
+            cuda_ms_fresh(lambda: ccl_step_plain(lab, data, out), lambda: out.copy_(big), reps=2),
+            cuda_ms(lambda: torch.nn.functional.max_pool2d(xp, 3, stride=1)), bound_ms(9 * N),
+        ),
+        "ccl_step 3-D": (
+            cuda_ms_fresh(lambda: ccl_step(lab3, data, out, depth3=True), lambda: out.copy_(big)),
+            cuda_ms_fresh(lambda: ccl_step_plain(lab3, data, out, depth3=True), lambda: out.copy_(big), reps=2),
+            cuda_ms(lambda: torch.nn.functional.max_pool3d(xp3, 3, stride=1)), bound_ms(9 * N),
+        ),
+        "min_stencil masked": (
             cuda_ms(lambda: min_stencil(lab, data, masked=True)),
             cuda_ms(lambda: min_stencil_plain(lab, data, masked=True)),
+            cuda_ms(lambda: torch.nn.functional.max_pool2d(xp, 3, stride=1)), bound_ms(9 * N),
         ),
-        "min_stencil_plain_mode": (
+        "min_stencil plain": (
             cuda_ms(lambda: min_stencil(lab, masked=False)),
             cuda_ms(lambda: min_stencil_plain(lab, masked=False)),
-        ),
-        "hook": (
-            cuda_ms(lambda: hook(lab, lab_new, 720 * 1440)),
-            cuda_ms(lambda: hook_plain(lab, lab_new, 720 * 1440)),
+            cuda_ms(lambda: torch.nn.functional.max_pool2d(xp, 3, stride=1)), bound_ms(8 * N),
         ),
         "pointer_jump": (
             cuda_ms(lambda: pointer_jump(lab, 720 * 1440)),
             cuda_ms(lambda: pointer_jump_plain(lab, 720 * 1440)),
+            cuda_ms(lambda: torch.gather(flat, 1, gidx)), bound_ms(8 * N),
         ),
     }
-    for k, (t_kernel, t_plain) in times.items():
-        print(f"time {k} at {shape}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms")
-    del lab, data, lab_new
+    for k, (t_kernel, t_plain, t_lib, t_bound) in random_times.items():
+        print(f"time {k} at {shape}, random labels: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
+              f"library {t_lib:.4f} ms, bound {t_bound:.4f} ms ({100 * t_bound / t_kernel:.0f} % of it)")
+    del lab, data, lab3, out, big, xp, xp3, flat, gidx
+    torch.cuda.empty_cache()
 
     # ---- 4. both paths, CUDA against CPU, at 3 yr x 180 x 360 --------------
     slices_against_cpu(mx, 180, 360, args.seed, "cuda")
     torch.cuda.empty_cache()
 
     # ---- 5. both paths at full size ---------------------------------------
-    kernels = {"min_stencil": min_stencil, "hook": hook, "pointer_jump": pointer_jump}
+    kernels = {"ccl_step": ccl_step, "pointer_jump": pointer_jump}
     launches = main_paths(mx, 720, 1440, args.seed, kernels, "cuda")
     for path, counts in launches.items():
         if min(counts.values()) <= 0:
             raise AssertionError(f"a kernel of the {path} was never launched: {counts}")
 
-    replaces = {
-        "min_stencil": "marex_tpu/ops/pallas_kernels.py:60",
-        "hook": "marex_tpu/ops/label.py:84",
-        "pointer_jump": "marex_tpu/ops/label.py:130",
-    }
+    # ---- 6. the kernels on the main path's own labels ----------------------
+    label_times = main_path_labels(mx, args.seed)
+
+    replaces = {"ccl_step": "marex_tpu/ops/pallas_kernels.py:60", "pointer_jump": "marex_tpu/ops/label.py:130"}
     print(json.dumps({"kernels": [
         {
             "name": k,
@@ -459,8 +692,7 @@ def main() -> int:
             "replaces": replaces[k],
             "launches": launches["merge path (config 4)"][k],
             "max_abs_err": err[k],
-            "ms": times[k][0],
-            "plain_ms": times[k][1],
+            **label_times[k],
         }
         for k in kernels
     ]}))

@@ -84,10 +84,8 @@ def kernel_library() -> ctypes.CDLL:
     """The loaded kernel library with every entry point's signature declared."""
     lib = ctypes.CDLL(str(build()))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.marex_min_stencil.argtypes = [p, p, p, i, i, i, i, i, p]
-    lib.marex_min_stencil.restype = i
+    lib.marex_ccl_step.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.marex_ccl_step.restype = i
     lib.marex_pointer_jump.argtypes = [p, p, ll, ll, p]
     lib.marex_pointer_jump.restype = i
-    lib.marex_hook.argtypes = [p, p, p, ll, ll, p]
-    lib.marex_hook.restype = i
     return lib

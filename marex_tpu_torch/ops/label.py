@@ -15,10 +15,14 @@ The port of the gridded entry points of ``marex_tpu/ops/label.py``:
   (:func:`remap_labels`).
 
 Every active cell starts labelled with its own flat index; each iteration
-runs the min-stencil kernel, the hook (each cell whose label fell lowers the
-label of the cell its old label named) and one pointer jump, until nothing
-changes. A component's converged label is the minimum flat index of its
-cells, which is unique, so any sound propagation schedule ends at the
+runs the fused step kernel (the min-stencil and the hook: each cell whose
+label fell lowers the label of the cell its old label named) and one
+pointer jump, until the step's flag says that nothing changes. Two label
+buffers ping-pong with no copy: the step reads A and lowers B by
+``atomicMin`` (B always holds a field the next step's minimum can only
+lower, ``csrc/min_stencil.cu``), the jump reads B and writes A. A
+component's converged label is the minimum flat index of its cells, which
+is unique, so any sound propagation schedule ends at the
 reference's labels bit for bit. The hook takes the place of the reference's
 segmented-min sweeps: without it an iteration moves a label one cell, and
 the production field needed hundreds of iterations. A gather is cheap on the
@@ -30,12 +34,12 @@ returned.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from ..exceptions import TrackingError
-from .min_stencil import BIG, hook, min_stencil, pointer_jump
+from .min_stencil import BIG, ccl_step, pointer_jump
 
 MAX_ITERS_2D = 4096
 MAX_ITERS_3D = 8192
@@ -43,21 +47,26 @@ MAX_ITERS_3D = 8192
 _CHUNK_CELLS = 64 * 1024 * 1024
 
 
-def _fixpoint(start: List[torch.Tensor], step: Callable[[torch.Tensor], torch.Tensor], max_iters: int, what: str):
-    """Iterate ``step`` from the labels in the one-element list ``start``
-    until they stop changing; returns (labels, iterations). The list is
-    emptied, so the caller holds no reference that would keep the initial
-    field alive through the loop."""
-    lab = start.pop()
+def _fixpoint(
+    start: List[torch.Tensor], data: torch.Tensor, depth3: bool, wrap_x: bool, max_iters: int, what: str
+) -> Tuple[torch.Tensor, int]:
+    """Iterate the fused step and the jump from the labels in the
+    one-element list ``start`` until the step's flag says that they stop
+    changing; returns (labels, iterations). The list is emptied, so the
+    caller holds no reference that would keep the initial field alive
+    through the loop."""
+    a = start.pop()
+    T, H, W = a.shape
+    slice_size = T * H * W if depth3 else H * W
+    b = torch.full_like(a, BIG)
     for it in range(1, max_iters + 1):
-        new = step(lab)
-        if torch.equal(new, lab):
-            return new, it
-        lab = new
+        if not ccl_step(a, data, b, depth3=depth3, wrap_x=wrap_x).item():
+            return a, it
+        pointer_jump(b, slice_size, out=a)
     raise TrackingError(
         f"{what} did not converge in {max_iters} iterations",
         suggestions=["This indicates a labelling fault: the propagation must reach a fixpoint"],
-        context={"max_iters": max_iters, "shape": tuple(lab.shape)},
+        context={"max_iters": max_iters, "shape": tuple(a.shape)},
     )
 
 
@@ -76,12 +85,9 @@ def label_slices_grid_roots(data: torch.Tensor, wrap_x: bool = True) -> Tuple[to
     """
     T, H, W = data.shape
     S = H * W
+    data = data.contiguous()
     start = [torch.arange(S, dtype=torch.int32, device=data.device).repeat(T).view(T, H, W).masked_fill_(~data, BIG)]
-
-    def step(lab: torch.Tensor) -> torch.Tensor:
-        return pointer_jump(hook(lab, min_stencil(lab, data, masked=True, wrap_x=wrap_x), S), S)
-
-    lab, iters = _fixpoint(start, step, MAX_ITERS_2D, "per-slice CCL")
+    lab, iters = _fixpoint(start, data, False, wrap_x, MAX_ITERS_2D, "per-slice CCL")
     root_flat = lab.view(T, S)
     roots = (root_flat == torch.arange(S, dtype=torch.int32, device=data.device)).view(-1).nonzero().squeeze(1)
     return root_flat, torch.bincount(roots // S, minlength=T), iters
@@ -153,24 +159,10 @@ def label_spacetime_roots(data: torch.Tensor, wrap_x: bool = True) -> Tuple[torc
             suggestions=["Track a shorter time range per run"],
             context={"shape": (T, H, W)},
         )
-    inactive = ~data
-    start = [torch.arange(N, dtype=torch.int32, device=data.device).view(T, H, W).masked_fill_(inactive, BIG)]
-
-    # at most three label fields live at once (4.5 GB each at production size)
-    def step(lab: torch.Tensor) -> torch.Tensor:
-        m = min_stencil(lab, masked=False, wrap_x=wrap_x)
-        if T > 1:
-            pair = torch.minimum(m[:-1], m[1:])  # min over (t, t+1)
-            m[0] = pair[0]
-            m[-1] = pair[-1]
-            torch.minimum(pair[:-1], pair[1:], out=m[1:-1])
-            del pair
-        m.masked_fill_(inactive, BIG)
-        hooked = hook(lab, m, N)
-        del m
-        return pointer_jump(hooked, N)
-
-    lab, iters = _fixpoint(start, step, MAX_ITERS_3D, "3-D CCL")
+    # two label fields live at once (4.5 GB each at production size)
+    data = data.contiguous()
+    start = [torch.arange(N, dtype=torch.int32, device=data.device).view(T, H, W).masked_fill_(~data, BIG)]
+    lab, iters = _fixpoint(start, data, True, wrap_x, MAX_ITERS_3D, "3-D CCL")
     return lab.view(N), iters
 
 

@@ -9,8 +9,8 @@ drop-first-object quirk), then either 3x3x3 spatio-temporal event labelling
 the default): per-slice objects linked through their overlaps, merging
 children partitioned among their parents, and the objects clustered into
 events with per-event area, centroid, presence and merge ledger. The
-labellings run on the hand-written CUDA min-stencil, hook and pointer-jump
-kernels when the field lies on a GPU.
+labellings run on the hand-written CUDA kernels (the min-stencil fused
+with the hook, and the pointer jump) when the field lies on a GPU.
 
 The march follows the reference's per-step form
 (``tracker._split_and_merge_device``): its bookkeeping (thresholds,

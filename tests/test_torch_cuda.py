@@ -15,14 +15,16 @@ import pytest
 import torch
 
 import marex_tpu_torch as port
+from marex_tpu_torch.ops import label as port_label
 from marex_tpu_torch.ops.min_stencil import (
     BIG,
-    hook,
-    hook_plain,
+    ccl_step,
+    ccl_step_plain,
     min_stencil,
     min_stencil_plain,
     pointer_jump,
     pointer_jump_plain,
+    spacetime_min_plain,
 )
 
 from .torch_parity import merge_dense_field
@@ -52,31 +54,104 @@ def _drive_sst(seed=0, T=3 * 365, ny=24, nx=48):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(5, 7, 13), (3, 720, 1440), (10, 1, 1), (1095, 720, 1440)])
+@pytest.mark.parametrize("shape", [(5, 7, 13), (1, 1, 5), (2, 3, 1), (3, 720, 1440), (10, 1, 1), (1095, 720, 1440)])
 def test_cuda_kernels_match_plain_versions(shape):
-    """(1095, 720, 1440) is the main path's shape (3 yr of daily 0.25 degree
-    data): its CCLs call the stencil on it, and the hook and the jump with
-    slice sizes H*W (per slice) and T*H*W (3-D)."""
+    """Bit for bit, over the stencil's modes, the fused step in both depths
+    with ``wrap_x`` on and off and ``out`` BIG-filled or holding a stale
+    field ``>= m`` (its flag too), and the jump per slice and over the block.
+    (1095, 720, 1440) is the main path's shape (3 yr of daily 0.25 degree
+    data)."""
     _need_cuda()
     g = torch.Generator(device="cuda")
     g.manual_seed(7)
     T, H, W = shape
     data_d = torch.rand(shape, generator=g, device="cuda") < 0.5
-    for S in (H * W, T * H * W):
+    for depth3 in (False, True):
+        S = T * H * W if depth3 else H * W
         lab_d = torch.randint(0, S, shape, generator=g, device="cuda", dtype=torch.int32)
         lab_d.masked_fill_(torch.rand(shape, generator=g, device="cuda") < 0.3, BIG)
-        if S == H * W:
+        if not depth3:
             for masked in (True, False):
                 for wrap_x in (True, False):
                     d = data_d if masked else None
                     got = min_stencil(lab_d, d, masked=masked, wrap_x=wrap_x)
                     assert torch.equal(got, min_stencil_plain(lab_d, d, masked=masked, wrap_x=wrap_x)), (masked, wrap_x)
                     del got
+        for wrap_x in (True, False):
+            for stale in (False, True):
+                out = torch.full_like(lab_d, BIG)
+                if stale:  # a field >= m, as the previous iteration's hooked field is
+                    m = (spacetime_min_plain(lab_d, data_d, wrap_x) if depth3
+                         else min_stencil_plain(lab_d, data_d, wrap_x=wrap_x))
+                    up = torch.randint(0, 3, shape, generator=g, device="cuda", dtype=torch.int32)
+                    out = torch.where(m >= BIG - 2, m, m + up)
+                    del m, up
+                want = out.clone()
+                flag_want = ccl_step_plain(lab_d, data_d, want, depth3=depth3, wrap_x=wrap_x)
+                flag = ccl_step(lab_d, data_d, out, depth3=depth3, wrap_x=wrap_x)
+                assert torch.equal(out, want), (depth3, wrap_x, stale)
+                assert bool(flag) == bool(flag_want), (depth3, wrap_x, stale)
+                del out, want
         assert torch.equal(pointer_jump(lab_d, S), pointer_jump_plain(lab_d, S)), S
-        m = torch.where(lab_d == BIG, BIG, torch.minimum(lab_d, lab_d.flip(-1)))
-        assert torch.equal(hook(lab_d, m, S), hook_plain(lab_d, m, S)), S
-        del lab_d, m
+        del lab_d
     torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth3", [False, True])
+def test_cuda_step_on_unaligned_tensors_matches_plain_version(depth3):
+    """Tensors that start 4 bytes past a 16-byte boundary take the kernels'
+    4-byte path even where W % 4 == 0."""
+    _need_cuda()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    shape = (3, 9, 132)
+    n = 3 * 9 * 132
+    S = n if depth3 else 9 * 132
+
+    def unaligned(t):
+        spare = torch.empty(n + 1, dtype=t.dtype, device="cuda")
+        return spare[1:].view(shape).copy_(t)
+
+    data = unaligned(torch.rand(shape, generator=g, device="cuda") < 0.6)
+    lab = unaligned(torch.randint(0, S, shape, generator=g, device="cuda", dtype=torch.int32))
+    for wrap_x in (True, False):
+        out, want = unaligned(torch.full(shape, BIG, dtype=torch.int32, device="cuda")), torch.full_like(lab, BIG)
+        flag = ccl_step(lab, data, out, depth3=depth3, wrap_x=wrap_x)
+        flag_want = ccl_step_plain(lab, data, want, depth3=depth3, wrap_x=wrap_x)
+        assert torch.equal(out, want) and bool(flag) == bool(flag_want), wrap_x
+        if not depth3:
+            assert torch.equal(min_stencil(lab, data, wrap_x=wrap_x), min_stencil_plain(lab, data, wrap_x=wrap_x))
+
+
+@pytest.mark.cuda
+def test_ccl_fixpoints_on_cuda_match_cpu():
+    """Both whole CCLs at 3 yr x 180 x 360, at the 8-connected percolation
+    density: labels and iteration counts equal to the CPU's, and each
+    step's flag equal to a full comparison of the labels."""
+    _need_cuda()
+    rng = np.random.default_rng(5)
+    data = torch.from_numpy(rng.random((3 * 365, 180, 360)) < 0.42)
+    gpu = data.cuda()
+    roots_c, counts_c, it2_c = port_label.label_slices_grid_roots(data)
+    roots_g, counts_g, it2_g = port_label.label_slices_grid_roots(gpu)
+    assert torch.equal(roots_g.cpu(), roots_c) and torch.equal(counts_g.cpu(), counts_c) and it2_g == it2_c
+    labf_c, it3_c = port_label.label_spacetime_roots(data)
+    labf_g, it3_g = port_label.label_spacetime_roots(gpu)
+    assert torch.equal(labf_g.cpu(), labf_c) and it3_g == it3_c
+    for depth3 in (False, True):
+        T, H, W = gpu.shape
+        S = T * H * W if depth3 else H * W
+        idx = torch.arange(S, dtype=torch.int32, device="cuda")
+        a = (idx if depth3 else idx.repeat(T)).view(T, H, W).masked_fill_(~gpu, BIG)
+        b = torch.full_like(a, BIG)
+        while True:
+            changed = bool(ccl_step(a, gpu, b, depth3=depth3))
+            new = pointer_jump(b, S)
+            assert changed == (not torch.equal(new, a)), depth3
+            if not changed:
+                break
+            a.copy_(new)
 
 
 @pytest.mark.cuda

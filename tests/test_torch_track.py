@@ -16,6 +16,7 @@ from marex_tpu.ops import morphology as ref_morph
 from marex_tpu_torch.core.field import from_reference
 from marex_tpu_torch.ops import label as port_label
 from marex_tpu_torch.ops import morphology as port_morph
+from marex_tpu_torch.ops.min_stencil import BIG, hook_plain, min_stencil_plain, pointer_jump_plain, spacetime_min_plain
 
 from .torch_parity import assert_same, blob_field, bool_fields
 
@@ -138,6 +139,31 @@ def test_chunked_bookkeeping_matches_one_chunk(monkeypatch):
     for a, b in zip(whole[0] + whole[1][:1], chunked[0] + chunked[1][:1]):
         assert_same(a, b, "chunked")
     assert whole[1][1] == chunked[1][1]
+
+
+def _unfused_iterations(data: torch.Tensor, depth3: bool) -> int:
+    """The iteration count of the unfused fixpoint (stencil, hook, jump,
+    then a full comparison of old and new labels), in plain PyTorch."""
+    T, H, W = data.shape
+    S = T * H * W if depth3 else H * W
+    idx = torch.arange(S, dtype=torch.int32)
+    lab = (idx if depth3 else idx.repeat(T)).view(T, H, W).masked_fill_(~data, BIG)
+    for it in range(1, 100):
+        m = spacetime_min_plain(lab, data) if depth3 else min_stencil_plain(lab, data)
+        new = pointer_jump_plain(hook_plain(lab, m, S), S)
+        if torch.equal(new, lab):
+            return it
+        lab = new
+    raise AssertionError("no fixpoint")
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("case", [FEW, MANY], ids=["le64", "gt64"])
+def test_fixpoint_iterations_equal_the_unfused_fixpoint(case, seed):
+    """The flag ends the fused fixpoints at the unfused loop's iteration."""
+    data = torch.from_numpy(_field(case, seed))
+    assert port_label.label_slices_grid_roots(data)[2] == _unfused_iterations(data, False)
+    assert port_label.label_spacetime_roots(data)[1] == _unfused_iterations(data, True)
 
 
 def test_fixpoint_raises_when_it_does_not_converge(monkeypatch):
