@@ -15,28 +15,38 @@ Phases, each of which raises (and so exits nonzero) on failure:
    main path's own shape 1095 x 720 x 1440; then each timed at
    (64, 720, 1440) on random labels, beside its plain version and the
    nearest single PyTorch call;
-4. both paths at 3 yr x 180 x 360, on CUDA and on the CPU (plain
+4. the paths at 3 yr x 180 x 360, on CUDA and on the CPU (plain
    versions): config 1 (no merging) with boolean and integer outputs
-   bit-identical and floats within 1e-5; then config 4 (merging, nearest-cell
+   bit-identical and floats within 1e-5; config 4 (merging, nearest-cell
    partitioning) with ``ID_field``, ``global_ID``, ``presence``,
    ``merge_ledger`` and every merge record bit-identical, ``area`` and
    ``centroid`` within 1e-5, and merges and partitions that really happened;
-5. both paths at full size, 3 yr x 720 x 1440 daily (0.25 degree global),
-   generated on the card from ``--seed``: ``preprocess_data`` (fixed
-   baseline, global 95th percentile) then ``tracker(R_fill=12, T_fill=4,
-   area_filter_absolute=600, grid_resolution=0.25, ...)``, first with
-   ``allow_merging=False`` (config 1), then with ``allow_merging=True,
-   nn_partitioning=True, overlap_threshold=0.25`` and
-   ``run(return_merges=True)`` (config 4, the main path). Each path is run
-   with the kernels' launch counts set to 0 just before it and read just
-   after;
+   config 2 (the reference's defaults: shifting baseline, approximate Hobday
+   thresholds) with ``dat_anomaly``, ``thresholds``, ``extreme_events``,
+   ``mask`` and ``ID_field`` bit-identical; the exact percentile (Hobday
+   and global) with thresholds and extremes bit-identical; and
+   ``detrend_harmonic`` with ``std_normalise`` with floats within 1e-5 and
+   each differing extreme within 1e-5 of its threshold;
+5. the paths at full size, 3 yr x 720 x 1440 daily (0.25 degree global),
+   generated on the card from ``--seed``: ``preprocess_data`` then
+   ``tracker(R_fill=12, T_fill=4, area_filter_absolute=600,
+   grid_resolution=0.25, ...)``: config 1 (fixed baseline, global 95th
+   percentile, ``allow_merging=False``), config 2 (``DETECT_CONFIG2``, the
+   same tracker on the last calendar year), then config 4 (config 1's
+   detect, ``allow_merging=True, nn_partitioning=True,
+   overlap_threshold=0.25`` and ``run(return_merges=True)``: the main path).
+   Each path is run with the kernels' launch counts set to 0 just before it
+   and read just after. Config 2's detect wall is then split by entry point,
+   and its Hobday step by sub-step (CUDA events);
 6. the kernels on the main path's own labels: the area filter's fixpoint on
    phase 5's field, run by hand with each launch timed, and at its
    iterations 1, 6 and 12 the fused step and the jump timed beside the
    nearest single PyTorch calls and beside the unfused iteration as far as
    this tree still has it (the stencil alone, a clone, the jump and a full
    comparison: the iteration before the fusion without its hook kernel),
-   which the fused iteration must beat.
+   which the fused iteration must beat; then config 1's 3-D fixpoint on its
+   own input, its step timed at iterations 1, 6 and 12, and at 6 beside its
+   plain version and ``max_pool3d``.
 
 The line before the last is a JSON object with each kernel's launches on the
 merge path of phase 5, its largest difference from the plain version, and
@@ -62,6 +72,18 @@ DETECT_FIXED = dict(
     method_extreme="global_extreme",
     method_percentile="approximate",
     threshold_percentile=95,
+)
+# config 2, the reference's defaults at a 3-year block (bench.py:717-725): the
+# shifting baseline over the 2 previous years, then Hobday thresholds with the
+# default 5 x 5 spatial window; the trim keeps the last calendar year
+DETECT_CONFIG2 = dict(
+    method_anomaly="shifting_baseline",
+    method_extreme="hobday_extreme",
+    method_percentile="approximate",
+    threshold_percentile=95,
+    window_year_baseline=2,
+    smooth_days_baseline=21,
+    window_days_hobday=11,
 )
 BIG = 2**31 - 1
 
@@ -271,12 +293,12 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor, chunk: int = 1 << 26) -> int:
     )
 
 
-def run_slice(mx, sst, coords, device: str, ny: int, merge: bool = False):
+def run_slice(mx, sst, coords, device: str, ny: int, merge: bool = False, detect: dict = DETECT_FIXED):
     """detect + track through the entry points; returns (ds, events, merges
     (None without merging), tracker, detect wall, track wall, detect peak)."""
     t0 = time.perf_counter()
     ds = mx.preprocess_data(mx.Field(sst, ("time", "lat", "lon"), coords, name="sst"), device=device, quiet=True,
-                            **DETECT_FIXED)
+                            **detect)
     detect_peak = 0
     if device == "cuda":
         torch.cuda.synchronize()
@@ -386,33 +408,146 @@ def slices_against_cpu(mx, ny: int, nx: int, seed: int, device: str) -> None:
     )
     print(f"merge slice stage_walls cuda: {json.dumps(tr_g.stage_walls)}")
     print(f"merge slice stage_walls cpu: {json.dumps(tr_c.stage_walls)}")
+    del ev_g, mg_g, tr_g, ev_c, mg_c, tr_c
+    detect_methods_against_cpu(mx, sst, sst_cpu, coords, ny, nx, device)
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    """Equal dtype and values, NaN where NaN."""
+    return a.dtype == b.dtype and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+
+
+def detect_methods_against_cpu(mx, sst, sst_cpu, coords, ny: int, nx: int, device: str) -> None:
+    """Phase 4, the other detect methods on ``device`` and on the CPU: config
+    2 (shifting baseline + approximate Hobday thresholds, then the no-merge
+    tracker) with ``dat_anomaly``, ``thresholds``, ``extreme_events``,
+    ``mask`` and ``ID_field`` bit-identical; the exact percentile (Hobday and
+    global, on the fixed baseline) with thresholds and extremes
+    bit-identical; ``detrend_harmonic`` with ``std_normalise`` with floats
+    within 1e-5 and each differing extreme within 1e-5 of its threshold."""
+    ds_g, ev_g, _, _, det_g, trk_g, _ = run_slice(mx, sst, coords, device, ny, detect=DETECT_CONFIG2)
+    ds_c, ev_c, _, _, det_c, trk_c, _ = run_slice(mx, sst_cpu, coords, "cpu", ny, detect=DETECT_CONFIG2)
+    for key in ("dat_anomaly", "thresholds", "extreme_events", "mask"):
+        if not same_bits(ds_g[key].values, ds_c[key].values):
+            raise AssertionError(f"config 2 slice: {key} differs between CUDA and CPU")
+    if not np.array_equal(ev_g["ID_field"].values, ev_c["ID_field"].values) or ev_g.attrs != ev_c.attrs:
+        raise AssertionError("config 2 slice: ID_field or attrs differ between CUDA and CPU")
+    n_ext = int(ds_g["extreme_events"].data.sum())
+    print(f"config 2 slice {tuple(ds_g['dat_anomaly'].shape)}: CUDA == CPU (dat_anomaly, thresholds, extreme_events, "
+          f"mask, ID_field bit-identical); {n_ext} extreme cells, N_events_final {ev_g.attrs['N_events_final']}; "
+          f"cuda detect {det_g:.3f} s track {trk_g:.3f} s; cpu detect {det_c:.3f} s track {trk_c:.3f} s")
+    del ds_g, ev_g, ds_c, ev_c
+
+    field = {d: mx.Field(x, ("time", "lat", "lon"), coords, name="sst") for d, x in ((device, sst), ("cpu", sst_cpu))}
+    for method_extreme in ("hobday_extreme", "global_extreme"):
+        kw = dict(method_anomaly="fixed_baseline", method_extreme=method_extreme, method_percentile="exact")
+        walls, out = {}, {}
+        for d in (device, "cpu"):
+            t0 = time.perf_counter()
+            out[d] = mx.preprocess_data(field[d], device=d, quiet=True, **kw)
+            if d == "cuda":
+                torch.cuda.synchronize()
+            walls[d] = time.perf_counter() - t0
+        for key in ("thresholds", "extreme_events"):
+            if not same_bits(out[device][key].values, out["cpu"][key].values):
+                raise AssertionError(f"exact {method_extreme}: {key} differs between CUDA and CPU")
+        print(f"exact percentile, {method_extreme}: CUDA == CPU (thresholds, extreme_events bit-identical); "
+              f"detect cuda {walls[device]:.3f} s, cpu {walls['cpu']:.3f} s")
+        del out
+
+    kw = dict(method_anomaly="detrend_harmonic", std_normalise=True, method_extreme="global_extreme",
+              method_percentile="approximate")
+    out = {d: mx.preprocess_data(field[d], device=d, quiet=True, **kw) for d in (device, "cpu")}
+    g, c = out[device], out["cpu"]
+    diffs = {}
+    for key in ("dat_anomaly", "dat_stn", "STD", "thresholds", "thresholds_stn"):
+        a, b = g[key].values, c[key].values
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"detrend + std_normalise: {key} NaN pattern differs")
+        diffs[key] = float(np.nanmax(np.abs(a.astype(np.float64) - b))) if np.isfinite(a).any() else 0.0
+        if diffs[key] > 1e-5:
+            raise AssertionError(f"detrend + std_normalise: {key} differs by {diffs[key]} > 1e-5")
+    n_diff = {}
+    for anom, ext, thr in (("dat_anomaly", "extreme_events", "thresholds"),
+                           ("dat_stn", "extreme_events_stn", "thresholds_stn")):
+        diff = g[ext].values != c[ext].values
+        n_diff[ext] = int(diff.sum())
+        gap = np.abs(c[anom].values - np.broadcast_to(c[thr].values, diff.shape))[diff]
+        if gap.size and gap.max() > 1e-5:
+            raise AssertionError(f"detrend + std_normalise: an {ext} cell {gap.max()} from its threshold differs")
+    print(f"detrend_harmonic + std_normalise: CUDA vs CPU max |diff| {json.dumps(diffs)}; differing extreme cells "
+          f"{json.dumps(n_diff)} (each within 1e-5 of its threshold)")
+
+
+def hobday_split(mx, ds, tinfo) -> dict:
+    """Config 2's Hobday step on the main run's own anomalies, run by hand
+    with CUDA events around each sub-step, summed over the histogram's
+    tiles: the binning (digitize, then the (Y, 366, S) scatter), and per
+    tile the (dayofyear, bin) histogram, the spatial window, the day-of-year
+    window and the count-space quantile; then the comparison of the
+    anomalies with the main run's thresholds of their day. Returns
+    {sub-step: ms}, the tile count and shape, and the bins' bytes."""
+    from marex_tpu_torch.core.timeaxis import scatter_to_year_doy
+    from marex_tpu_torch.ops import pipeline as p
+    from marex_tpu_torch.ops import quantile as q
+
+    anom = ds["dat_anomaly"].data
+    T, ny, nx = anom.shape
+    edges = q.make_bin_edges(0.01, 5.0)
+    nbins = len(edges) - 1
+    centers = torch.from_numpy(q.make_bin_centers(edges)).cuda()
+    split = Split()
+    bins = split.time("binning", lambda: scatter_to_year_doy(q.digitize_anomalies(anom.view(T, -1), 0.01, nbins),
+                                                            tinfo, fill=nbins))
+    n_tiles = 0
+    for tile, _, _ in q.hobday_tiles(bins, nbins, (ny, nx), 2, True, q._HIST_TILE_BYTES["cuda"]):
+        Y, D, th, tw = tile.shape
+        hist = split.time("histogram", lambda: q.histogram_doy_bins(tile.reshape(Y, D, th * tw), nbins))
+        hist = split.time("spatial window", lambda: q.pool_tile_spatial(hist.view(D, th, tw, nbins), 2))
+        hist = split.time("doy window", lambda: q.rolling_doy_window_sum(hist, 11))
+        split.time("quantile", lambda: q.histogram_quantile_counts(hist, 0.95, centers))
+        del hist
+        split.settle()
+        n_tiles += 1
+    thr = ds["thresholds"].data.view(366, -1)
+    extremes = torch.empty(anom.shape, dtype=torch.bool, device=anom.device).view(T, -1)
+    split.time("compare", lambda: p.doy_op(torch.ge, anom.view(T, -1), thr, tinfo.dayofyear - 1, extremes))
+    split.settle()
+    if not torch.equal(extremes.view(anom.shape), ds["extreme_events"].data):
+        raise AssertionError("config 2: the comparison by hand differs from the main run's extremes")
+    return {"ms": {k: round(v, 3) for k, v in split.ms.items()}, "tiles": n_tiles, "tile_shape": [th, tw],
+            "bins_bytes": bins.numel() * bins.element_size()}
 
 
 def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str) -> dict:
-    """Phase 5: config 1, then the merge path (config 4), at 3 yr x ny x nx
-    generated on ``device``, each with the kernels' launch counts set to 0
-    just before it and read just after. Prints each path's walls, counts and
-    memory; returns {path: launch counts}."""
+    """Phase 5: config 1, config 2, then the merge path (config 4), at
+    3 yr x ny x nx generated on ``device``, each with the kernels' launch
+    counts set to 0 just before it and read just after. Prints each path's
+    walls, counts and memory, and config 2's detect split; returns {path:
+    launch counts}."""
+    from marex_tpu_torch.core.timeaxis import decompose_time
+
     t0 = time.perf_counter()
     sst, coords = make_sst(3, ny, nx, seed, device)
     if device == "cuda":
         torch.cuda.synchronize()
     print(f"data: {tuple(sst.shape)} generated on the card in {time.perf_counter() - t0:.1f} s")
-    T = sst.shape[0]
     launches = {}
-    for merge in (False, True):
-        path = "merge path (config 4)" if merge else "config 1"
+    paths = (("config 1", DETECT_FIXED, False), ("config 2", DETECT_CONFIG2, False),
+             ("merge path (config 4)", DETECT_FIXED, True))
+    for path, detect, merge in paths:
         if device == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         for fn in kernels.values():
             fn.launch_count = 0
-        ds, events, merges, tr, t_det, t_trk, detect_peak = run_slice(mx, sst, coords, device, ny, merge=merge)
+        ds, events, merges, tr, t_det, t_trk, detect_peak = run_slice(mx, sst, coords, device, ny, merge, detect)
         launches[path] = {k: fn.launch_count for k, fn in kernels.items()}
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
         thr, mask = ds["thresholds"].data, ds["mask"].data
-        if not bool(torch.isfinite(thr[mask]).all()):
+        if not bool(torch.isfinite(thr[..., mask]).all()):
             raise AssertionError("non-finite thresholds over the ocean")
+        T = ds["extreme_events"].shape[0]
         if merge:
             n_events = check_merge_outputs(events, merges, T, ny, nx)
         else:
@@ -424,8 +559,8 @@ def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str) -> d
                 raise AssertionError(f"ID_field range [{int(ids.min())}, {int(ids.max())}] vs N_events_final {n_events}")
             del ids
         print(
-            f"{path} {T} x {ny} x {nx}: detect {t_det:.3f} s, track {t_trk:.3f} s, "
-            f"{T * ny * nx / (t_det + t_trk):.4g} gridpoint-days/s"
+            f"{path} {sst.shape[0]} x {ny} x {nx} (tracked {T} days): detect {t_det:.3f} s, track {t_trk:.3f} s, "
+            f"{sst.shape[0] * ny * nx / (t_det + t_trk):.4g} gridpoint-days/s"
         )
         print(f"  stage_walls: {json.dumps(tr.stage_walls)}")
         print(f"  N_events_final: {n_events}; attrs: "
@@ -436,8 +571,43 @@ def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str) -> d
         print(f"  launch counts: {json.dumps(launches[path])}")
         print(f"  max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB); after detect {detect_peak / 2**30:.2f} GiB")
         print(f"  stage_peak_bytes (running max): {json.dumps(tr.stage_peak_bytes)}")
-        del ds, events, merges, tr, thr, mask
+        del events, merges, tr, thr, mask
+        if detect is DETECT_CONFIG2:
+            config2_detect_split(mx, sst, coords, ds, decompose_time(ds.coords["time"].values))
+        del ds
     return launches
+
+
+def config2_detect_split(mx, sst, coords, ds, tinfo) -> None:
+    """Config 2's detect wall split by entry point (the anomaly, then the
+    trim and the extremes), and its Hobday step by sub-step (``hobday_split``)
+    beside the least time the card could take to read its bins and write
+    its thresholds, and the bytes of one pass over the dense histogram."""
+    torch.cuda.empty_cache()
+    field = mx.Field(sst, ("time", "lat", "lon"), coords, name="sst")
+    shift = {k: DETECT_CONFIG2[k] for k in ("method_anomaly", "window_year_baseline", "smooth_days_baseline")}
+    hobday = {k: v for k, v in DETECT_CONFIG2.items() if k not in shift}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    anom = mx.compute_normalised_anomaly(field, device="cuda", **shift)["dat_anomaly"]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    keep = np.nonzero(pd.DatetimeIndex(coords["time"]).year >= pd.DatetimeIndex(coords["time"]).year.min() + 2)[0]
+    mx.identify_extremes(anom.isel(time=keep), device="cuda", quiet=True, **hobday)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del anom
+    sub = hobday_split(mx, ds, tinfo)
+    T, ny, nx = ds["dat_anomaly"].shape
+    S = ny * nx
+    out_bytes = 366 * S * 4
+    print(f"  config 2 detect split: anomaly (compute_normalised_anomaly) {t1 - t0:.3f} s; trim + extremes "
+          f"(identify_extremes) {t2 - t1:.3f} s")
+    print(f"  config 2 Hobday step by hand (CUDA events, summed over {sub['tiles']} tiles of {sub['tile_shape']} "
+          f"cells with halos): {json.dumps(sub['ms'])} ms; total {sum(sub['ms'].values()):.3f} ms; bound "
+          f"{bound_ms(sub['bins_bytes'] + out_bytes):.4f} ms (bins read once, thresholds written once, bytes); one "
+          f"pass over the dense (366, S, nbins + 1) int32 histogram {366 * S * 503 * 4 / 1e9:.1f} GB = "
+          f"{bound_ms(366 * S * 503 * 4):.1f} ms")
 
 
 def main_path_labels(mx, seed: int) -> dict:
@@ -450,7 +620,7 @@ def main_path_labels(mx, seed: int) -> dict:
     beat. Returns the JSON fields of both kernels at iteration 6."""
     from marex_tpu_torch.ops.min_stencil import ccl_step, ccl_step_plain, min_stencil, pointer_jump, pointer_jump_plain
 
-    data, _ = filter_input(mx, seed)
+    data, tr = filter_input(mx, seed)
     T, H, W = data.shape
     S, N = H * W, data.numel()
     split = Split()
@@ -509,6 +679,46 @@ def main_path_labels(mx, seed: int) -> dict:
             }
         del a, b, hooked
         torch.cuda.empty_cache()
+    del out
+    result["ccl_step 3-D"] = spacetime_labels(tr.filter_small_objects(data)[0].contiguous())
+    return result
+
+
+def spacetime_labels(data: torch.Tensor) -> dict:
+    """Phase 6, config 1's 3-D fixpoint (``ccl3d``) on its own input (the
+    area filter's output of phase 5's field), run by hand with each launch
+    timed; at its iterations 1, 6 and 12 the fused 3-D step timed from a
+    fresh copy of its output, and at iteration 6 beside its plain version
+    and ``max_pool3d`` on the negated, padded labels. Returns those times."""
+    from marex_tpu_torch.ops.min_stencil import ccl_step, ccl_step_plain
+
+    torch.cuda.empty_cache()
+    N = data.numel()
+    result = {}
+    split = Split()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iters, snaps = fused_fixpoint(data, True, split, keep=(1, 6, 12))
+    print(f"3-D fixpoint on config 1's own input ({int(data.sum())} active cells): {iters} iterations, wall "
+          f"{time.perf_counter() - t0:.4f} s; summed launch ms {json.dumps(split.ms)}")
+    print(f"  each launch (ms): {json.dumps(split.each)}")
+    out = torch.empty_like(data, dtype=torch.int32)
+    times = {}
+    for k in sorted(snaps):
+        a, b = snaps.pop(k)
+        times[k] = cuda_ms_fresh(lambda: ccl_step(a, data, out, depth3=True), lambda: out.copy_(b))
+        line = f"3-D iteration {k}: ccl_step {times[k]:.4f} ms, bound {bound_ms(9 * N):.4f} ms"
+        if k == 6:
+            t_plain = cuda_ms_fresh(lambda: ccl_step_plain(a, data, out, depth3=True), lambda: out.copy_(b), reps=1)
+            xp = neg_padded(a, depth3=True)
+            t_pool = cuda_ms(lambda: torch.nn.functional.max_pool3d(xp, 3, stride=1), reps=3)
+            del xp
+            line += f"; plain {t_plain:.4f} ms; max_pool3d {t_pool:.4f} ms"
+            result = dict(ms=times[6], plain_ms=t_plain, bound_ms=bound_ms(9 * N), library_ms=t_pool)
+        print(line)
+        del a, b
+        torch.cuda.empty_cache()
+    print(f"3-D ccl_step at iterations 1 / 6 / 12: {json.dumps(times)} ms")
     return result
 
 

@@ -5,14 +5,14 @@ MarEx on PyTorch: marine extremes detection and tracking on an NVIDIA GPU
 The PyTorch port of ``marex_tpu``, with the same public entry points:
 
 >>> import marex_tpu_torch as marEx
->>> ds = marEx.preprocess_data(sst, method_anomaly="fixed_baseline",
-...                            method_extreme="global_extreme", device="cuda")
+>>> ds = marEx.preprocess_data(sst, window_year_baseline=2, device="cuda")
 >>> events, merges = marEx.tracker(ds.extreme_events, ds.mask, R_fill=12, T_fill=4,
 ...                                area_filter_absolute=600, grid_resolution=0.25,
 ...                                allow_merging=True, nn_partitioning=True,
 ...                                overlap_threshold=0.25).run(return_merges=True)
 
-Ported so far: the fixed-baseline / global-extreme detect path, and
+Ported so far: detect on gridded data (every anomaly method, the
+approximate and exact global and Hobday thresholds, ``std_normalise``), and
 gridded, global tracking without merging (3x3x3 event labelling) and with it
 (the split/merge march with nearest-cell or centroid partitioning, event
 clustering, per-event area, centroid, presence and merge ledger, and the
@@ -24,7 +24,14 @@ runs on hand-written CUDA kernels (``csrc/min_stencil.cu``), compiled with
 """
 
 from .core.field import Coord, Field, FieldSet, as_field, from_reference
-from .detect import compute_normalised_anomaly, identify_extremes, preprocess_data
+from .detect import (
+    add_decimal_year,
+    compute_normalised_anomaly,
+    identify_extremes,
+    preprocess_data,
+    rolling_climatology,
+    smoothed_rolling_climatology,
+)
 from .exceptions import (
     ConfigurationError,
     CoordinateError,
@@ -47,6 +54,9 @@ __all__ = [
     "preprocess_data",
     "compute_normalised_anomaly",
     "identify_extremes",
+    "rolling_climatology",
+    "smoothed_rolling_climatology",
+    "add_decimal_year",
     "tracker",
     "MarExError",
     "DataValidationError",

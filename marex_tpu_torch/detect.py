@@ -1,16 +1,20 @@
 """
 MarEx detect on PyTorch: anomalies and extreme-event identification.
 
-The port of ``marex_tpu/detect.py`` for the main path: the
-``fixed_baseline`` anomaly and the approximate ``global_extreme`` threshold,
-with the reference's validation and output contract (``dat_anomaly``,
-``mask``, ``extreme_events``, ``thresholds`` and provenance attrs). Other
-methods raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+The port of ``marex_tpu/detect.py`` on gridded data: the four anomaly
+methods (``detrend_harmonic`` with ``std_normalise``, ``shifting_baseline``,
+``fixed_baseline``, ``detrend_fixed_baseline``), the two extreme methods
+(``global_extreme``, ``hobday_extreme``), each with the approximate and the
+exact percentile, the public shifting-baseline helpers, and the reference's
+validation and output contract (``dat_anomaly``, ``mask``,
+``extreme_events``, ``thresholds`` and provenance attrs). Unstructured data
+and ``mesh`` raise ``NotImplementedError`` naming the ROADMAP item that
+brings them.
 
 Device placement is explicit: a torch tensor input keeps its device; numpy
 or ``Field`` payloads move to ``device`` (default ``"cuda"``). Nothing falls
-back to the CPU on its own.
+back to the CPU on its own, and every output (``dat_stn`` and ``STD``
+included) stays on the device.
 """
 
 from __future__ import annotations
@@ -23,9 +27,11 @@ import numpy as np
 import torch
 
 from .core.field import Coord, Field, FieldSet, as_field, on_device
-from .core.timeaxis import TimeIndexInfo, decompose_time
+from .core.timeaxis import TimeIndexInfo, decompose_time, gather_from_year_doy, scatter_to_year_doy
 from .exceptions import ConfigurationError, create_data_validation_error
 from .logging_config import configure_logging, get_logger, log_array_info, log_memory_usage, log_timing
+from .ops import climatology as _clim
+from .ops import detrend as _detrend
 from .ops import pipeline as _pipe
 from .ops import quantile as _quant
 
@@ -33,12 +39,6 @@ logger = get_logger(__name__)
 
 _ANOMALY_METHODS = ["detrend_harmonic", "shifting_baseline", "fixed_baseline", "detrend_fixed_baseline"]
 _NOT_PORTED = {
-    "shifting_baseline": "ROADMAP queue 1, item 6 (reference-default detect)",
-    "detrend_harmonic": "ROADMAP queue 1, item 7 (detrend methods and std_normalise)",
-    "detrend_fixed_baseline": "ROADMAP queue 1, item 7 (detrend methods and std_normalise)",
-    "hobday_extreme": "ROADMAP queue 1, item 6 (reference-default detect)",
-    "exact": "ROADMAP queue 1, item 2 (detect: the exact percentile path)",
-    "std_normalise": "ROADMAP queue 1, item 7 (detrend methods and std_normalise)",
     "mesh": "ROADMAP queue 1, item 11 (multi-GPU)",
     "unstructured": "ROADMAP queue 1, item 9 (unstructured meshes)",
 }
@@ -161,6 +161,18 @@ def _validate_data_values(data: torch.Tensor) -> None:
         )
 
 
+def _reject_reference_period(method_anomaly: str, reference_period) -> None:
+    if reference_period is not None and method_anomaly not in ("fixed_baseline", "detrend_fixed_baseline"):
+        raise ConfigurationError(
+            f"reference_period is not supported for method_anomaly='{method_anomaly}'",
+            details="reference_period is only applicable to 'fixed_baseline' and 'detrend_fixed_baseline' methods",
+            suggestions=[
+                "Remove the reference_period parameter, or",
+                "Use method_anomaly='fixed_baseline' or 'detrend_fixed_baseline'",
+            ],
+        )
+
+
 # ============================
 # Internal staging
 # ============================
@@ -182,8 +194,35 @@ class _Staged:
         self.copied = not (isinstance(payload, torch.Tensor) and self.data.data_ptr() == payload.data_ptr())
         self.tinfo: TimeIndexInfo = decompose_time(da.coords[coordinates["time"]].values)
 
+    @property
+    def flat(self) -> torch.Tensor:
+        """The payload as a (T, S) view."""
+        return self.data.view(self.data.shape[0], -1)
+
     def spatial_coords(self) -> Dict[str, Coord]:
         return {name: c for name, c in self.field.coords.items() if set(c.dims) <= set(self.spatial_dims)}
+
+    def doy_coords(self) -> Dict[str, Coord]:
+        return {**self.spatial_coords(), "dayofyear": Coord("dayofyear", np.arange(1, 367))}
+
+    def time_field(self, data: torch.Tensor, name: str) -> Field:
+        """A (T, *spatial) result on the input's dims and coords."""
+        return Field(data.view((-1,) + self.spatial_shape), (self.timedim,) + self.spatial_dims,
+                     self.field.coords, name=name)
+
+    def doy_field(self, data: torch.Tensor, name: str) -> Field:
+        """A (366, *spatial) result on ("dayofyear", *spatial dims)."""
+        return Field(data.view((366,) + self.spatial_shape), ("dayofyear",) + self.spatial_dims,
+                     self.doy_coords(), name=name)
+
+    def anomaly_set(self, anomalies: torch.Tensor, mask: torch.Tensor, extra: Optional[Dict[str, Field]] = None):
+        """``dat_anomaly`` and ``mask`` (plus ``extra``) as a FieldSet."""
+        data_vars = {
+            "dat_anomaly": self.time_field(anomalies, "dat_anomaly"),
+            "mask": Field(mask, self.spatial_dims, self.spatial_coords(), name="mask"),
+            **(extra or {}),
+        }
+        return FieldSet(data_vars, dict(self.field.coords))
 
 
 # ============================
@@ -223,23 +262,18 @@ def preprocess_data(
     Complete preprocessing pipeline: anomalies + extreme identification,
     API-compatible with ``marex_tpu.preprocess_data``.
 
-    Ported: ``method_anomaly='fixed_baseline'`` with
-    ``method_extreme='global_extreme'`` and ``method_percentile='approximate'``.
     ``dask_chunks`` and ``use_temp_checkpoints`` are accepted and ignored.
     With ``donate_input=True`` a float32 tensor input may be overwritten in
     place by the anomalies (saving one field-sized buffer).
 
     Returns a FieldSet with ``dat_anomaly``, ``mask``, ``extreme_events`` and
-    ``thresholds`` (tensors on the input's device) and provenance attrs.
+    ``thresholds`` (plus ``dat_stn``, ``STD``, ``extreme_events_stn`` and
+    ``thresholds_stn`` with ``std_normalise`` on ``detrend_harmonic``), as
+    tensors on the input's device, and provenance attrs. The shifting
+    baseline drops its first ``window_year_baseline`` years.
     """
     if mesh is not None:
         raise _not_ported("mesh", "mesh")
-    if method_anomaly in _NOT_PORTED:
-        raise _not_ported(f"method_anomaly='{method_anomaly}'", method_anomaly)
-    if method_extreme in _NOT_PORTED:
-        raise _not_ported(f"method_extreme='{method_extreme}'", method_extreme)
-    if std_normalise:
-        raise _not_ported("std_normalise", "std_normalise")
     if detrend_orders is None:
         detrend_orders = [1]
     if verbose is not None or quiet is not None:
@@ -257,6 +291,7 @@ def preprocess_data(
     if not isinstance(da.data, torch.Tensor):
         da = Field(on_device(np.asarray(da.data, dtype=np.float32), device), da.dims, da.coords, da.name, da.attrs)
         donate_input = True
+    _reject_reference_period(method_anomaly, reference_period)
     _validate_data_values(da.data.movedim(da.dims.index(dimensions["time"]), 0))
 
     with log_timing(logger, f"Anomaly computation using {method_anomaly} method", log_memory=True):
@@ -275,6 +310,9 @@ def preprocess_data(
             device=device,
         )
 
+    if method_anomaly == "shifting_baseline":
+        ds = _trim_baseline_years(ds, dimensions["time"], coordinates["time"], window_year_baseline)
+
     with log_timing(logger, f"Extreme event identification using {method_extreme} method", log_memory=True):
         extremes, thresholds = identify_extremes(
             ds["dat_anomaly"],
@@ -292,6 +330,24 @@ def preprocess_data(
     ds["extreme_events"] = extremes
     ds["thresholds"] = thresholds
 
+    if std_normalise and method_anomaly == "detrend_harmonic":
+        logger.info("Processing standardised anomalies for extreme identification")
+        extremes_stn, thresholds_stn = identify_extremes(
+            ds["dat_stn"],
+            method_extreme,
+            threshold_percentile,
+            dimensions,
+            coordinates,
+            window_days_hobday,
+            window_spatial_hobday,
+            method_percentile,
+            precision,
+            max_anomaly,
+            device=device,
+        )
+        ds["extreme_events_stn"] = extremes_stn
+        ds["thresholds_stn"] = thresholds_stn
+
     if neighbours is not None:
         nb = as_field(neighbours)
         ds["neighbours"] = nb.astype(np.int32)
@@ -300,27 +356,126 @@ def preprocess_data(
     if cell_areas is not None:
         ds["cell_areas"] = as_field(cell_areas).astype(np.float32)
 
-    steps = (
-        [f"Daily climatology computed from {reference_period[0]}-{reference_period[1]}"]
-        if reference_period is not None
-        else ["Daily climatology computed from full time series"]
-    )
-    steps.append("Global percentile threshold applied to all days")
     ds.attrs.update(
         {
             "method_anomaly": method_anomaly,
             "method_extreme": method_extreme,
             "threshold_percentile": threshold_percentile,
-            "preprocessing_steps": steps,
+            "preprocessing_steps": _get_preprocessing_steps(
+                method_anomaly,
+                method_extreme,
+                std_normalise,
+                detrend_orders,
+                window_year_baseline,
+                smooth_days_baseline,
+                window_days_hobday,
+                window_spatial_hobday,
+                reference_period,
+            ),
         }
     )
-    if reference_period is not None:
-        ds.attrs["reference_period"] = list(reference_period)
+    if method_anomaly == "detrend_harmonic":
+        ds.attrs.update(
+            {"detrend_orders": detrend_orders, "force_zero_mean": force_zero_mean, "std_normalise": std_normalise}
+        )
+    elif method_anomaly == "shifting_baseline":
+        ds.attrs.update(
+            {"window_year_baseline": window_year_baseline, "smooth_days_baseline": smooth_days_baseline}
+        )
+    else:
+        if method_anomaly == "detrend_fixed_baseline":
+            ds.attrs.update({"detrend_orders": detrend_orders, "force_zero_mean": force_zero_mean})
+        if reference_period is not None:
+            ds.attrs["reference_period"] = list(reference_period)
+    if method_extreme == "hobday_extreme":
+        ds.attrs["window_days_hobday"] = window_days_hobday
     ds.attrs.update({"method_percentile": method_percentile, "precision": precision, "max_anomaly": max_anomaly})
 
     n_extremes = int(ds["extreme_events"].data.sum(dim=(1, 2), dtype=torch.int32).sum())
     logger.info(f"Preprocessing completed successfully - {n_extremes} extreme events identified")
     return ds
+
+
+def _trim_baseline_years(ds: FieldSet, timedim: str, timecoord: str, window_year_baseline: int) -> FieldSet:
+    """Drop the shifting baseline's first ``window_year_baseline`` years (they
+    have no climatology)."""
+    tinfo = decompose_time(ds.coords[timecoord].values)
+    total_years = int(tinfo.year.max() - tinfo.year.min() + 1)
+    if total_years < window_year_baseline:
+        raise create_data_validation_error(
+            "Insufficient data for shifting_baseline method",
+            details=f"Dataset spans {total_years} years but requires at least {window_year_baseline} years",
+            suggestions=[
+                "Use more years of data to meet minimum requirement",
+                f"Reduce window_year_baseline parameter (currently {window_year_baseline})",
+                "Consider using detrend_fixed_baseline or detrend_harmonic method instead",
+            ],
+            data_info={"available_years": total_years, "required_years": int(window_year_baseline)},
+        )
+    start_year = int(tinfo.year.min() + window_year_baseline)
+    keep = np.nonzero(tinfo.year >= start_year)[0]
+    if keep.size == 0:
+        # `total_years < window` lets the equality case through, which would
+        # empty the dataset: fail loudly instead, as the reference does
+        raise create_data_validation_error(
+            "Insufficient data for shifting_baseline method",
+            details=(
+                f"Removing the first {window_year_baseline} baseline years "
+                f"leaves no timesteps (dataset spans {total_years} years)"
+            ),
+            suggestions=[
+                "Use more years of data (at least window_year_baseline + 1)",
+                f"Reduce window_year_baseline parameter (currently {window_year_baseline})",
+                "Consider using detrend_fixed_baseline or detrend_harmonic method instead",
+            ],
+            data_info={"available_years": total_years, "required_years": int(window_year_baseline) + 1},
+        )
+    logger.info(f"Trimming data to start from {start_year} (removing first {window_year_baseline} years)")
+    return ds.isel({timedim: keep})
+
+
+def _get_preprocessing_steps(
+    method_anomaly: str,
+    method_extreme: str,
+    std_normalise: bool,
+    detrend_orders: List[int],
+    window_year_baseline: int,
+    smooth_days_baseline: int,
+    window_days_hobday: int,
+    window_spatial_hobday: Optional[int],
+    reference_period: Optional[Tuple[int, int]] = None,
+) -> List[str]:
+    """Provenance description of the processing chain."""
+    steps = []
+    if method_anomaly == "detrend_harmonic":
+        steps.append(f"Removed polynomial trend orders={detrend_orders} & seasonal cycle")
+        if std_normalise:
+            steps.append("Normalised by 30-day rolling STD")
+    elif method_anomaly == "shifting_baseline":
+        steps.append(f"Rolling climatology using {window_year_baseline} years")
+        steps.append(f"Smoothed with {smooth_days_baseline}-day window")
+    elif method_anomaly == "fixed_baseline":
+        if reference_period is not None:
+            steps.append(f"Daily climatology computed from {reference_period[0]}-{reference_period[1]}")
+        else:
+            steps.append("Daily climatology computed from full time series")
+    elif method_anomaly == "detrend_fixed_baseline":
+        steps.append(f"Removed polynomial trend orders={detrend_orders}")
+        if reference_period is not None:
+            steps.append(f"Daily climatology computed from detrended data ({reference_period[0]}-{reference_period[1]})")
+        else:
+            steps.append("Daily climatology computed from detrended data")
+
+    if method_extreme == "global_extreme":
+        steps.append("Global percentile threshold applied to all days")
+    elif method_extreme == "hobday_extreme":
+        if window_spatial_hobday is not None:
+            steps.append(
+                f"Day-of-year thresholds with {window_days_hobday} day window & {window_spatial_hobday} spatial neighbours"
+            )
+        else:
+            steps.append(f"Day-of-year thresholds with {window_days_hobday} day window")
+    return steps
 
 
 def compute_normalised_anomaly(
@@ -342,26 +497,33 @@ def compute_normalised_anomaly(
 ) -> FieldSet:
     """
     Anomalies by the selected method; returns a FieldSet with ``dat_anomaly``
-    and ``mask``. Ported: ``fixed_baseline`` (with ``reference_period``).
+    and ``mask`` (plus ``dat_stn`` and ``STD`` for ``detrend_harmonic``
+    with ``std_normalise``).
     """
+    if detrend_orders is None:
+        detrend_orders = [1]
     if verbose is not None or quiet is not None:
         configure_logging(verbose=verbose, quiet=quiet)
     da = as_field(da)
     dimensions, coordinates = _infer_dims_coords(da, dimensions, coordinates)
+    _reject_reference_period(method_anomaly, reference_period)
 
-    if reference_period is not None and method_anomaly not in ("fixed_baseline", "detrend_fixed_baseline"):
-        raise ConfigurationError(
-            f"reference_period is not supported for method_anomaly='{method_anomaly}'",
-            details="reference_period is only applicable to 'fixed_baseline' and 'detrend_fixed_baseline' methods",
-            suggestions=[
-                "Remove the reference_period parameter, or",
-                "Use method_anomaly='fixed_baseline' or 'detrend_fixed_baseline'",
-            ],
+    if method_anomaly == "detrend_harmonic":
+        return _anomaly_detrended(
+            da, dimensions, coordinates, std_normalise, detrend_orders, force_zero_mean, True, donate_input, device
+        )
+    if method_anomaly == "shifting_baseline":
+        return _anomaly_shifting_baseline(
+            da, dimensions, coordinates, window_year_baseline, smooth_days_baseline, donate_input, device
         )
     if method_anomaly == "fixed_baseline":
         return _anomaly_fixed_baseline(da, dimensions, coordinates, reference_period, donate_input, device)
-    if method_anomaly in _NOT_PORTED:
-        raise _not_ported(f"method_anomaly='{method_anomaly}'", method_anomaly)
+    if method_anomaly == "detrend_fixed_baseline":
+        detrended = _anomaly_detrended(
+            da, dimensions, coordinates, False, detrend_orders, force_zero_mean, False, donate_input, device
+        )
+        # the intermediate detrended field is ours: the climatology step overwrites it
+        return _anomaly_fixed_baseline(detrended["dat_anomaly"], dimensions, coordinates, reference_period, True, device)
     raise ConfigurationError(
         f"Unknown anomaly method '{method_anomaly}'",
         details="Invalid method_anomaly parameter",
@@ -373,6 +535,26 @@ def compute_normalised_anomaly(
         ],
         context={"provided_method": method_anomaly, "valid_methods": _ANOMALY_METHODS},
     )
+
+
+def _anomaly_shifting_baseline(
+    da: Field,
+    dimensions: Dict[str, str],
+    coordinates: Dict[str, str],
+    window_year_baseline: int,
+    smooth_days_baseline: int,
+    donate: bool,
+    device,
+) -> FieldSet:
+    """Smoothed rolling climatology anomaly (NaN for the first
+    ``window_year_baseline`` years)."""
+    staged = _Staged(da, dimensions, coordinates, device)
+    mask = torch.isfinite(staged.data[0])
+    out = staged.flat if (donate or staged.copied) else None
+    anomalies = _pipe.shifting_baseline_anomaly(
+        staged.flat, staged.tinfo, window_year_baseline, smooth_days_baseline, out=out
+    )
+    return staged.anomaly_set(anomalies, mask)
 
 
 def _anomaly_fixed_baseline(
@@ -414,10 +596,121 @@ def _anomaly_fixed_baseline(
     anomalies = _pipe.fixed_baseline_anomaly(
         staged.data, tinfo.dayofyear - 1, clim_mask, out=staged.data if in_place else None
     )
-    dims = (staged.timedim,) + staged.spatial_dims
-    anom = Field(anomalies, dims, dict(staged.field.coords), name="dat_anomaly")
-    mask_f = Field(mask, staged.spatial_dims, staged.spatial_coords(), name="mask")
-    return FieldSet({"dat_anomaly": anom, "mask": mask_f}, dict(staged.field.coords))
+    return staged.anomaly_set(anomalies, mask)
+
+
+def _anomaly_detrended(
+    da: Field,
+    dimensions: Dict[str, str],
+    coordinates: Dict[str, str],
+    std_normalise: bool,
+    detrend_orders: List[int],
+    force_zero_mean: bool,
+    remove_harmonics: bool,
+    donate: bool,
+    device,
+) -> FieldSet:
+    """Polynomial (+ harmonic) detrending anomaly, and with ``std_normalise``
+    the anomalies over their 30-day rolling day-of-year STD."""
+    if not detrend_orders:
+        raise ConfigurationError(
+            "detrend_orders cannot be empty",
+            details="At least one polynomial order must be specified for detrending",
+            suggestions=[
+                "Use detrend_orders=[1] for linear detrending",
+                "Use detrend_orders=[1, 2] for linear + quadratic detrending",
+                "Remove detrend_orders optional parameter to use default [1]",
+            ],
+        )
+    if any(order < 1 for order in detrend_orders):
+        invalid = [o for o in detrend_orders if o < 1]
+        raise ConfigurationError(
+            f"Invalid polynomial orders: {invalid}",
+            details="Polynomial orders must be positive integers (>= 1)",
+            suggestions=[
+                "Use only positive integers for polynomial orders",
+                "Common values: [1] for linear, [1,2] for linear+quadratic",
+                f"Remove invalid orders: {invalid}",
+            ],
+        )
+    if 1 not in detrend_orders and len(detrend_orders) > 1:
+        warnings.warn("Higher-order detrending without linear term may be unstable", UserWarning, stacklevel=2)
+
+    staged = _Staged(da, dimensions, coordinates, device)
+    mask = torch.isfinite(staged.data[0])
+    model, pmodel = _detrend.build_design_matrix(staged.tinfo, detrend_orders, remove_harmonics)
+    out = staged.flat if (donate or staged.copied) else None
+    anomalies = _pipe.detrended_anomaly(staged.flat, model, pmodel, force_zero_mean, out=out)
+
+    extra: Dict[str, Field] = {}
+    if std_normalise:
+        std_doy = _clim.dayofyear_std(scatter_to_year_doy(anomalies, staged.tinfo))
+        std_rolling = _clim.wrapped_rolling_rms_doy(std_doy, window=30, pad=16)
+        del std_doy
+        std_safe = torch.where(std_rolling > 1e-10, std_rolling, torch.nan)
+        dat_stn = _pipe.doy_op(torch.div, anomalies, std_safe, staged.tinfo.dayofyear - 1, torch.empty_like(anomalies))
+        extra["dat_stn"] = staged.time_field(dat_stn, "dat_stn")
+        extra["STD"] = staged.doy_field(std_rolling, "STD")
+    return staged.anomaly_set(anomalies, mask, extra)
+
+
+# ===============================================
+# Shifting Baseline public helpers
+# ===============================================
+
+
+def rolling_climatology(
+    da: Any,
+    window_year_baseline: int = 15,
+    dimensions: Optional[Dict[str, str]] = None,
+    coordinates: Optional[Dict[str, str]] = None,
+    use_temp_checkpoints: bool = False,
+    device: Union[str, torch.device] = "cuda",
+) -> Field:
+    """
+    Rolling climatology: for each timestep, the mean over the same day-of-year
+    in the previous ``window_year_baseline`` years. Years without sufficient
+    history are NaN.
+    """
+    da = as_field(da)
+    dimensions, coordinates = _infer_dims_coords(da, dimensions, coordinates)
+    staged = _Staged(da, dimensions, coordinates, device)
+    clim_y = _clim.rolling_climatology_ymd(scatter_to_year_doy(staged.flat, staged.tinfo), window_year_baseline)
+    return staged.time_field(gather_from_year_doy(clim_y, staged.tinfo), da.name)
+
+
+def smoothed_rolling_climatology(
+    da: Any,
+    window_year_baseline: int = 15,
+    smooth_days_baseline: int = 21,
+    dimensions: Optional[Dict[str, str]] = None,
+    coordinates: Optional[Dict[str, str]] = None,
+    use_temp_checkpoints: bool = False,
+    device: Union[str, torch.device] = "cuda",
+) -> Field:
+    """
+    Rolling climatology of the time-smoothed data (smoothing the raw series
+    first is cheaper than smoothing the climatology).
+    """
+    da = as_field(da)
+    dimensions, coordinates = _infer_dims_coords(da, dimensions, coordinates)
+    staged = _Staged(da, dimensions, coordinates, device)
+    smoothed = _clim.centered_rolling_mean_time(staged.flat, smooth_days_baseline)
+    clim_y = _clim.rolling_climatology_ymd(scatter_to_year_doy(smoothed, staged.tinfo), window_year_baseline)
+    return staged.time_field(gather_from_year_doy(clim_y, staged.tinfo), da.name)
+
+
+def add_decimal_year(da: Any, dim: str = "time", coord: Optional[str] = None) -> Field:
+    """Attach a ``decimal_year`` coordinate along ``dim``."""
+    da = as_field(da)
+    coord_name = coord if coord is not None else dim
+    dy = decompose_time(da.coords[coord_name].values).decimal_year
+    return da.assign_coords(decimal_year=(dim, dy))
+
+
+# ==========================
+# Extreme identification
+# ==========================
 
 
 def identify_extremes(
@@ -438,8 +731,9 @@ def identify_extremes(
 ) -> Tuple[Field, Field]:
     """
     Identify extreme events exceeding a percentile threshold; returns
-    ``(extremes, thresholds)``. Ported: ``global_extreme`` with
-    ``method_percentile='approximate'``.
+    ``(extremes, thresholds)``: thresholds per point (``global_extreme``) or
+    per day of year and point (``hobday_extreme``, with a default spatial
+    window of 5 on gridded data).
     """
     if verbose is not None or quiet is not None:
         configure_logging(verbose=verbose, quiet=quiet)
@@ -457,6 +751,27 @@ def identify_extremes(
             ],
             context={"provided_method": method_percentile, "valid_methods": valid_methods},
         )
+    if method_percentile == "exact":
+        if precision != 0.01:
+            raise ConfigurationError(
+                "Parameter 'precision' cannot be used with method_percentile='exact'",
+                details="The precision parameter is only used by the approximate histogram method",
+                suggestions=[
+                    "Remove the 'precision' parameter when using method_percentile='exact'",
+                    "Use method_percentile='approximate' if you want to control histogram precision",
+                ],
+                context={"method_percentile": method_percentile, "provided_precision": precision},
+            )
+        if max_anomaly != 5.0:
+            raise ConfigurationError(
+                "Parameter 'max_anomaly' cannot be used with method_percentile='exact'",
+                details="The max_anomaly parameter is only used by the approximate histogram method",
+                suggestions=[
+                    "Remove the 'max_anomaly' parameter when using method_percentile='exact'",
+                    "Use method_percentile='approximate' if you want to control histogram binning range",
+                ],
+                context={"method_percentile": method_percentile, "provided_max_anomaly": max_anomaly},
+            )
     if not 0 < threshold_percentile <= 100:
         raise ConfigurationError(
             f"threshold_percentile must be in (0, 100], got {threshold_percentile}",
@@ -477,8 +792,8 @@ def identify_extremes(
                 "min_supported_percentile": 60,
             },
         )
-    if method_extreme == "global_extreme":
-        if window_spatial_hobday is not None:
+    if window_spatial_hobday is not None:
+        if method_extreme != "hobday_extreme":
             raise ConfigurationError(
                 "window_spatial_hobday can only be used with method_extreme='hobday_extreme'",
                 details="The window_spatial_hobday parameter is only implemented for the Hobday extreme method",
@@ -489,10 +804,43 @@ def identify_extremes(
                 context={"method_extreme": method_extreme, "window_spatial_hobday": window_spatial_hobday},
             )
         if method_percentile == "exact":
-            raise _not_ported("method_percentile='exact'", "exact")
-        return _identify_extremes_constant(da, threshold_percentile, dimensions, coordinates, precision, max_anomaly, device)
-    if method_extreme in _NOT_PORTED:
-        raise _not_ported(f"method_extreme='{method_extreme}'", method_extreme)
+            raise ConfigurationError(
+                "window_spatial_hobday is not supported with method_percentile='exact'",
+                details="The window_spatial_hobday parameter is only implemented for the approximate percentile method",
+                suggestions=[
+                    "Remove the window_spatial_hobday parameter when using method_percentile='exact'",
+                    "Use method_percentile='approximate' if spatial smoothing is required",
+                ],
+                context={"method_percentile": method_percentile, "window_spatial_hobday": window_spatial_hobday},
+            )
+    if method_extreme == "hobday_extreme":
+        if window_days_hobday is not None and window_days_hobday % 2 == 0:
+            raise ConfigurationError(
+                "window_days_hobday must be an odd number",
+                details=f"window_days_hobday={window_days_hobday} is even, which would create asymmetric temporal windows.",
+                suggestions=[f"Use window_days_hobday={window_days_hobday + 1} or {window_days_hobday - 1}", "Choose an odd number"],
+                context={"window_days_hobday": window_days_hobday, "is_odd": False},
+            )
+        if window_spatial_hobday is None:  # gridded data: the default 5 x 5 neighbourhood
+            window_spatial_hobday = 5
+        if window_spatial_hobday % 2 == 0:
+            raise ConfigurationError(
+                "window_spatial_hobday must be an odd number",
+                details=f"window_spatial_hobday={window_spatial_hobday} is even, which would create asymmetric spatial windows.",
+                suggestions=["Choose an odd number."],
+                context={"window_spatial_hobday": window_spatial_hobday, "is_odd": False},
+            )
+
+    exact = method_percentile == "exact"
+    if method_extreme == "global_extreme":
+        return _identify_extremes_constant(
+            da, threshold_percentile, exact, dimensions, coordinates, precision, max_anomaly, device
+        )
+    if method_extreme == "hobday_extreme":
+        return _identify_extremes_hobday(
+            da, threshold_percentile, window_days_hobday, window_spatial_hobday, exact, dimensions, coordinates,
+            precision, max_anomaly, device,
+        )
     raise ConfigurationError(
         f"Unknown extreme method '{method_extreme}'",
         details="Invalid method_extreme parameter",
@@ -525,9 +873,52 @@ def _warn_threshold_bounds(pre_min: float, pre_max: float, bin_edges: np.ndarray
         )
 
 
+def _bins(precision: float, max_anomaly: float, device) -> Tuple[np.ndarray, int, torch.Tensor]:
+    """Bin edges, bin count and bin centres (on ``device``)."""
+    bin_edges = _quant.make_bin_edges(precision, max_anomaly)
+    centers = torch.from_numpy(_quant.make_bin_centers(bin_edges)).to(device)
+    return bin_edges, len(bin_edges) - 1, centers
+
+
+def _identify_extremes_hobday(
+    da: Field,
+    threshold_percentile: float,
+    window_days_hobday: int,
+    window_spatial_hobday: int,
+    exact: bool,
+    dimensions: Dict[str, str],
+    coordinates: Dict[str, str],
+    precision: float,
+    max_anomaly: float,
+    device,
+) -> Tuple[Field, Field]:
+    """Day-of-year thresholds and the comparison."""
+    staged = _Staged(da, dimensions, coordinates, device)
+    q = threshold_percentile / 100.0
+    n_years = len(np.unique(staged.tinfo.year))
+    n_samples = n_years * window_days_hobday * window_spatial_hobday**2
+    n_above = n_samples * (1.0 - q)
+    if n_above < 50:
+        logger.warning(
+            f"Not enough samples for accurate extreme detection: {n_above} < 50. "
+            "Consider using a lower threshold_percentile, increasing your time-series size, "
+            "increasing the window_days_hobday, or using a larger window_spatial_hobday."
+        )
+
+    bin_edges, nbins, centers = _bins(precision, max_anomaly, staged.data.device)
+    extremes, thr, pre_min, pre_max = _pipe.hobday_program(
+        staged.flat, staged.tinfo, q, precision, centers, float(bin_edges[3]), nbins, window_days_hobday,
+        window_spatial_hobday, staged.spatial_shape, True, exact,
+    )
+    if not exact:
+        _warn_threshold_bounds(pre_min, pre_max, bin_edges, max_anomaly)
+    return staged.time_field(extremes, "extreme_events"), staged.doy_field(thr, "thresholds")
+
+
 def _identify_extremes_constant(
     da: Field,
     threshold_percentile: float,
+    exact: bool,
     dimensions: Dict[str, str],
     coordinates: Dict[str, str],
     precision: float,
@@ -536,15 +927,13 @@ def _identify_extremes_constant(
 ) -> Tuple[Field, Field]:
     """Global-in-time threshold per spatial point."""
     staged = _Staged(da, dimensions, coordinates, device)
-    bin_edges = _quant.make_bin_edges(precision, max_anomaly)
-    nbins = len(bin_edges) - 1
-    centers = torch.from_numpy(_quant.make_bin_centers(bin_edges)).to(staged.data.device)
+    bin_edges, nbins, centers = _bins(precision, max_anomaly, staged.data.device)
     extremes, thr, pre_min, pre_max = _pipe.global_extreme_program(
-        staged.data, threshold_percentile / 100.0, precision, centers, float(bin_edges[3]), nbins
+        staged.data, threshold_percentile / 100.0, precision, centers, float(bin_edges[3]), nbins, exact
     )
-    _warn_threshold_bounds(pre_min, pre_max, bin_edges, max_anomaly)
-    dims = (staged.timedim,) + staged.spatial_dims
+    if not exact:
+        _warn_threshold_bounds(pre_min, pre_max, bin_edges, max_anomaly)
     return (
-        Field(extremes, dims, staged.field.coords, name="extreme_events"),
+        staged.time_field(extremes, "extreme_events"),
         Field(thr, staged.spatial_dims, staged.spatial_coords(), name="thresholds"),
     )

@@ -172,6 +172,59 @@ def test_slice_on_cuda_matches_cpu():
     assert g_ev.attrs == c_ev.attrs and g_ev.attrs["N_events_final"] > 0
 
 
+def _detect_on_both(sst, **kw):
+    return {device: port.preprocess_data(sst, device=device, quiet=True, **kw) for device in ("cpu", "cuda")}
+
+
+def _same(c, g, key):
+    a, b = c[key].values, g[key].values
+    assert a.dtype == b.dtype and np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), key
+
+
+@pytest.mark.cuda
+def test_config2_on_cuda_matches_cpu():
+    """The reference default (shifting baseline, approximate Hobday
+    thresholds with the 5 x 5 window), then the no-merge tracker:
+    bit-identical on the card and the CPU."""
+    _need_cuda()
+    out = _detect_on_both(_drive_sst(), method_anomaly="shifting_baseline", window_year_baseline=2,
+                          method_extreme="hobday_extreme")
+    c, g = out["cpu"], out["cuda"]
+    for key in ("dat_anomaly", "thresholds", "extreme_events", "mask"):
+        _same(c, g, key)
+    ev = {d: port.tracker(ds["extreme_events"], ds["mask"], device=d, quiet=True, **TRACK_SMALL).run()
+          for d, ds in out.items()}
+    assert np.array_equal(ev["cpu"]["ID_field"].values, ev["cuda"]["ID_field"].values)
+    assert g.attrs == c.attrs and ev["cuda"].attrs == ev["cpu"].attrs and ev["cuda"].attrs["N_events_final"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method_extreme", ["hobday_extreme", "global_extreme"])
+def test_exact_percentile_on_cuda_matches_cpu(method_extreme):
+    _need_cuda()
+    out = _detect_on_both(_drive_sst(), method_anomaly="fixed_baseline", method_extreme=method_extreme,
+                          method_percentile="exact")
+    for key in ("thresholds", "extreme_events"):
+        _same(out["cpu"], out["cuda"], key)
+
+
+@pytest.mark.cuda
+def test_detrend_std_normalise_on_cuda_matches_cpu():
+    """Floats within 1e-5; the extremes may differ only where an anomaly lies
+    within 1e-5 of its threshold (the float64 fit sums in another order)."""
+    _need_cuda()
+    out = _detect_on_both(_drive_sst(), method_anomaly="detrend_harmonic", std_normalise=True,
+                          method_extreme="global_extreme")
+    c, g = out["cpu"], out["cuda"]
+    for key in ("dat_anomaly", "dat_stn", "STD", "thresholds", "thresholds_stn"):
+        np.testing.assert_allclose(c[key].values, g[key].values, rtol=0, atol=1e-5, err_msg=key)
+    for anom, ext, thr in (("dat_anomaly", "extreme_events", "thresholds"),
+                           ("dat_stn", "extreme_events_stn", "thresholds_stn")):
+        diff = c[ext].values != g[ext].values
+        near = np.abs(c[anom].values - np.broadcast_to(c[thr].values, diff.shape))[diff]
+        assert (near <= 1e-5).all(), (ext, int(diff.sum()))
+
+
 @pytest.mark.cuda
 def test_merge_on_cuda_matches_cpu():
     """Merge tracking (nearest-cell partitioning) on the merge-dense field:

@@ -118,11 +118,8 @@ def test_validation_errors_match(sst):
 @pytest.mark.parametrize(
     "kw, item",
     [
-        (dict(method_anomaly="shifting_baseline"), "item 6"),
-        (dict(method_extreme="hobday_extreme"), "item 6"),
-        (dict(method_anomaly="detrend_harmonic"), "item 7"),
-        (dict(method_percentile="exact"), "item 2"),
         (dict(mesh=True), "item 11"),
+        (dict(dimensions={"time": "time", "x": "lon"}, coordinates={"x": "lon", "y": "lat"}), "item 9"),
     ],
 )
 def test_unported_options_name_their_roadmap_item(sst, kw, item):

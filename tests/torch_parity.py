@@ -118,3 +118,26 @@ def assert_close(ref, port, atol: float = FLOAT_ATOL, what: str = "") -> None:
     assert a.shape == b.shape, f"{what}: shape {a.shape} vs {b.shape}"
     np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=f"{what}: NaN pattern")
     np.testing.assert_allclose(a, b, rtol=0, atol=atol, equal_nan=True, err_msg=what)
+
+
+def assert_extremes_near(ref_anom, ref_thr, port_thr, ref_ext, port_ext, doy_idx, near: float,
+                         max_share: float = 1e-4, what: str = "extreme_events") -> int:
+    """Extremes from anomalies that agree only within a tolerance: at most
+    ``max_share`` of the cells differ, and at each the reference's anomaly
+    lies within ``near`` of the reference's threshold or between the two
+    packages' thresholds. ``*_thr`` are per (dayofyear, *spatial) when
+    ``doy_idx`` (0-based, per time step) is given, else per point. Returns
+    the count of differing cells."""
+    a, re_, pe = to_np(ref_anom), to_np(ref_ext), to_np(port_ext)
+    rt, pt = to_np(ref_thr), to_np(port_thr)
+    if doy_idx is not None:
+        rt, pt = rt[doy_idx], pt[doy_idx]
+    else:
+        rt, pt = np.broadcast_to(rt, a.shape), np.broadcast_to(pt, a.shape)
+    diff = re_ != pe
+    n = int(diff.sum())
+    assert n <= max_share * diff.size, f"{what}: {n} of {diff.size} cells differ (limit {max_share:g})"
+    av, rv, pv = a[diff].astype(np.float64), rt[diff].astype(np.float64), pt[diff].astype(np.float64)
+    ok = (np.abs(av - rv) <= near) | ((av >= np.minimum(rv, pv)) & (av <= np.maximum(rv, pv)))
+    assert ok.all(), f"{what}: differing cells far from the threshold: {list(zip(av[~ok], rv[~ok], pv[~ok]))[:5]}"
+    return n
