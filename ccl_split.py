@@ -1,7 +1,7 @@
 """
 Per-launch split of the CCL fixpoints at full size, on one CUDA GPU.
 
-    python3 ccl_split.py [--seed N] [--reps R]
+    python3 ccl_split.py [--seed N] [--reps R] [--mesh]
 
 Builds the main path's own CCL inputs through the entry points, from
 ``chip_smoke.py``'s data (3 yr x 720 x 1440 daily, generated on the card
@@ -12,6 +12,11 @@ each fixpoint by hand, ``--reps`` times, with CUDA events around every
 launch, and prints the summed milliseconds of each operation over the
 iterations, the iteration count and the fixpoint's wall (host clock, ending
 in a synchronise), one JSON line per fixpoint and repetition.
+
+With ``--mesh`` it does the same for the mesh fixpoint alone (``graph_step``
+and ``pointer_jump``) on config 5's field, 2 yr x 1,048,352 cells: run it
+from a copy of another tree to compare two versions of the kernel in one
+call.
 
 It reads the iteration from the tree it runs in. Up to PR 2 an iteration
 was ``min_stencil``, ``hook`` (with its clone), ``pointer_jump`` and
@@ -30,7 +35,7 @@ import time
 
 import torch
 
-from chip_smoke import BIG, Split, filter_input, fused_fixpoint
+from chip_smoke import BIG, Split, filter_input, fused_fixpoint, mesh_filter_input
 
 
 def fixpoint_fused(ms, data, depth3: bool, split: Split) -> int:
@@ -74,6 +79,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--mesh", action="store_true", help="the mesh fixpoint on config 5's field instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ccl_split: no CUDA device")
@@ -86,13 +92,22 @@ def main() -> int:
 
     fused = hasattr(ms, "ccl_step")
     fixpoint = fixpoint_fused if fused else fixpoint_parent
-    filled, tr = filter_input(mx, args.seed)
-    filtered = tr.filter_small_objects(filled)[0].contiguous()
-    del tr
-    print(f"iteration: {'fused ccl_step + pointer_jump' if fused else 'min_stencil + hook + pointer_jump + equal'}; "
-          f"active cells: filter {int(filled.sum())}, 3-D {int(filtered.sum())} of {filled.numel()}")
+    if args.mesh:
+        field, table = mesh_filter_input(mx, args.seed)
+        print(f"iteration: graph_step + pointer_jump; active cells: {int(field.sum())} of {field.numel()}")
+        fixpoints = (("mesh filter/ccl_fixpoint", field, False),)
+
+        def fixpoint(ms, data, depth3, split):
+            return fused_fixpoint(data, False, split, neighbours=table)[0]
+    else:
+        filled, tr = filter_input(mx, args.seed)
+        filtered = tr.filter_small_objects(filled)[0].contiguous()
+        del tr
+        print(f"iteration: {'fused ccl_step + pointer_jump' if fused else 'min_stencil + hook + pointer_jump + equal'}; "
+              f"active cells: filter {int(filled.sum())}, 3-D {int(filtered.sum())} of {filled.numel()}")
+        fixpoints = (("filter/ccl_fixpoint", filled, False), ("ccl3d", filtered, True))
     for rep in range(args.reps):
-        for name, data, depth3 in (("filter/ccl_fixpoint", filled, False), ("ccl3d", filtered, True)):
+        for name, data, depth3 in fixpoints:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()

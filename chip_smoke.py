@@ -14,50 +14,70 @@ Phases, each of which raises (and so exits nonzero) on failure:
    jump per slice and over the block, random masks, ragged widths and the
    main path's own shape 1095 x 720 x 1440; then each timed at
    (64, 720, 1440) on random labels, beside its plain version and the
-   nearest single PyTorch call;
-4. the paths at 3 yr x 180 x 360, on CUDA and on the CPU (plain
-   versions): config 1 (no merging) with boolean and integer outputs
+   nearest single PyTorch call. The mesh step ``graph_step`` likewise: on
+   the triangle-pair mesh's table (as given and symmetrised, up to config
+   5's own shape, 730 x 1,048,352 cells, where a block walks many chunks of
+   slices) and on random directed tables after symmetrising (more than 3
+   rows, ``-1`` entries, ragged cell counts), ``out`` BIG-filled and stale,
+   the flag, and the whole mesh fixpoint against the CPU's; then timed at
+   (64, 1048352);
+4. the paths at small sizes, on CUDA and on the CPU (plain versions). At
+   3 yr x 180 x 360: config 1 (no merging) with boolean and integer outputs
    bit-identical and floats within 1e-5; config 4 (merging, nearest-cell
    partitioning) with ``ID_field``, ``global_ID``, ``presence``,
    ``merge_ledger`` and every merge record bit-identical, ``area`` and
    ``centroid`` within 1e-5, and merges and partitions that really happened;
    config 2 (the reference's defaults: shifting baseline, approximate Hobday
-   thresholds) with ``dat_anomaly``, ``thresholds``, ``extreme_events``,
+   thresholds; at 3 yr x 90 x 360) with ``dat_anomaly``, ``thresholds``, ``extreme_events``,
    ``mask`` and ``ID_field`` bit-identical; the exact percentile (Hobday
    and global) with thresholds and extremes bit-identical; and
    ``detrend_harmonic`` with ``std_normalise`` with floats within 1e-5 and
-   each differing extreme within 1e-5 of its threshold;
-5. the paths at full size, 3 yr x 720 x 1440 daily (0.25 degree global),
-   generated on the card from ``--seed``: ``preprocess_data`` then
+   each differing extreme within 1e-5 of its threshold. Config 5 (an
+   unstructured mesh, merging) at 2 yr x 32768 cells, held like config 4,
+   with merges on the mesh; config 3 (a regional domain, no merging) at
+   3 yr x 90 x 180 with ``extreme_events``, ``mask``, ``ID_field`` and attrs
+   bit-identical, and its first 400 days with merging on, held like config 4;
+5. the paths at full size, generated on the card from ``--seed``. At
+   3 yr x 720 x 1440 daily (0.25 degree global): ``preprocess_data`` then
    ``tracker(R_fill=12, T_fill=4, area_filter_absolute=600,
    grid_resolution=0.25, ...)``: config 1 (fixed baseline, global 95th
    percentile, ``allow_merging=False``), config 2 (``DETECT_CONFIG2``, the
    same tracker on the last calendar year), then config 4 (config 1's
    detect, ``allow_merging=True, nn_partitioning=True,
    overlap_threshold=0.25`` and ``run(return_merges=True)``: the main path).
-   Each path is run with the kernels' launch counts set to 0 just before it
-   and read just after. Config 2's detect wall is then split by entry point,
-   and its Hobday step by sub-step (CUDA events);
-6. the kernels on the main path's own labels: the area filter's fixpoint on
-   phase 5's field, run by hand with each launch timed, and at its
+   Config 2's detect wall is then split by entry point, and its Hobday step
+   by sub-step (CUDA events). Then config 5: 2 yr x 1,048,352 cells of a
+   triangular mesh, config 1's detect on (time, cell) data and
+   ``tracker(unstructured_grid=True, **TRACK_CONFIG5)``; and config 3:
+   3 yr x 360 x 720 over lat 30..70, lon -30..40, config 1's detect and
+   ``regional_tracker(..., **TRACK_CONFIG3)``. Each path is run with the
+   kernels' launch counts set to 0 just before it and read just after, and
+   must have launched the kernels it labels on;
+6. the kernels on the paths' own labels: the area filter's fixpoint on
+   config 4's field, run by hand with each launch timed, and at its
    iterations 1, 6 and 12 the fused step and the jump timed beside the
    nearest single PyTorch calls and beside the unfused iteration as far as
    this tree still has it (the stencil alone, a clone, the jump and a full
    comparison: the iteration before the fusion without its hook kernel),
    which the fused iteration must beat; then config 1's 3-D fixpoint on its
    own input, its step timed at iterations 1, 6 and 12, and at 6 beside its
-   plain version and ``max_pool3d``.
+   plain version and ``max_pool3d``; then the mesh fixpoint on config 5's
+   field, ``graph_step`` at iterations 1, 4 and 8 held against its plain
+   version on those labels (bit-identical) and timed beside its bound, and
+   at 4 beside its plain version, the gather of the table's rows and the
+   hook's ``scatter_reduce_``.
 
 The line before the last is a JSON object with each kernel's launches on the
-merge path of phase 5, its largest difference from the plain version, and
-its time, its plain version's, its bound and the nearest PyTorch call's on
-the main path's own labels (phase 6, iteration 6); the last line is
-``{"ok": true, "device": {...}}``.
+path that runs it (config 4; config 5 for ``graph_step``), its largest
+difference from the plain version, and its time, its plain version's, its
+bound and the nearest PyTorch call's on that path's own labels (phase 6);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -85,20 +105,44 @@ DETECT_CONFIG2 = dict(
     smooth_days_baseline=21,
     window_days_hobday=11,
 )
+# config 3, a regional domain (bench.py:746-778): config 1's detect over lat
+# 30..70, lon -30..40, then the regional tracker without merging
+REGION = dict(lat_range=(30.0, 70.0), lon_range=(-30.0, 40.0))
+TRACK_CONFIG3 = dict(R_fill=8, T_fill=2, area_filter_absolute=50, allow_merging=False)
+# config 5, an unstructured triangular mesh (bench.py:810-857): config 1's
+# detect on (time, cell) data, then merge tracking over the neighbour table
+MESH_DIMS = {"time": "time", "x": "ncells"}
+MESH_COORDS = {"time": "time", "x": "lon", "y": "lat"}
+TRACK_CONFIG5 = dict(
+    R_fill=2,
+    T_fill=2,
+    area_filter_quartile=0.5,
+    allow_merging=True,
+    nn_partitioning=True,
+    overlap_threshold=0.25,
+    unstructured_grid=True,
+    dimensions={"x": "ncells"},
+    coordinates={"x": "lon", "y": "lat"},
+    coordinate_units="degrees",
+)
+MESH_CELLS = 1048576  # an ICON-like cell count; the mesh below has 1,048,352 of them
+MESH_DAYS = 730  # config 5's two years
 BIG = 2**31 - 1
 
 
-def make_sst(n_years: int, ny: int, nx: int, seed: int, device: str):
+def make_sst(n_years: int, ny: int, nx: int, seed: int, device: str, lat_range=(-89.5, 89.5), lon_range=(0.0, 360.0)):
     """Synthetic daily SST (T, ny, nx) float32, generated on ``device``: AR(1)
     noise, a seasonal cycle, drifting warm blobs (days 60-140), converging
     blob pairs (days 150-270) and a NaN land block — the recipe of
-    ``bench._make_data_impl``, with torch's generator in place of numpy's."""
+    ``bench._make_data_impl``, with torch's generator in place of numpy's. A
+    longitude range other than the full circle includes its end point (a
+    regional grid)."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     times = pd.date_range("2000-01-01", periods=int(n_years * 365.25), freq="D").to_numpy()
     T = len(times)
-    lat = np.linspace(-89.5, 89.5, ny)
-    lon = np.linspace(0.0, 360.0, nx, endpoint=False)
+    lat = np.linspace(lat_range[0], lat_range[1], ny)
+    lon = np.linspace(lon_range[0], lon_range[1], nx, endpoint=lon_range != (0.0, 360.0))
     idx = pd.DatetimeIndex(times)
     doy, years = idx.dayofyear.to_numpy(), idx.year.to_numpy()
     coslat = torch.cos(torch.deg2rad(torch.tensor(lat, dtype=torch.float32, device=device)))
@@ -157,6 +201,100 @@ def track_kwargs(ny: int, merge: bool = False) -> dict:
     if merge:
         kw.update(nn_partitioning=True, overlap_threshold=0.25)
     return kw
+
+
+def tri_mesh(n_cells: int):
+    """Triangle-pair mesh on a lat/lon lattice, periodic in both directions:
+    (neighbours (3, C) 1-based int32, lat (C,), lon (C,)) with
+    C = 2 * gy * gx <= n_cells — the recipe of ``bench._tri_mesh``."""
+    gx = int(np.sqrt(n_cells / 2))
+    gy = max(n_cells // (2 * gx), 2)
+    C = 2 * gy * gx
+    jj, ii = np.mgrid[0:gy, 0:gx]
+    lo = 2 * (jj * gx + ii)
+    up = lo + 1
+
+    def tid(j, i, upper):
+        return (2 * ((j % gy) * gx + (i % gx)) + upper).astype(np.int32)
+
+    nb = np.empty((3, C), dtype=np.int32)
+    nb[0].reshape(gy, 2 * gx)[:, 0::2] = up
+    nb[1].reshape(-1)[lo.ravel()] = tid(jj, ii - 1, 1).ravel()
+    nb[2].reshape(-1)[lo.ravel()] = tid(jj - 1, ii, 1).ravel()
+    nb[0].reshape(-1)[up.ravel()] = lo.ravel()
+    nb[1].reshape(-1)[up.ravel()] = tid(jj, ii + 1, 0).ravel()
+    nb[2].reshape(-1)[up.ravel()] = tid(jj + 1, ii, 0).ravel()
+
+    lat_g = np.linspace(-60, 60, gy)
+    lon_g = np.linspace(0, 360, gx, endpoint=False)
+    lat_c = np.empty(C, np.float64)
+    lon_c = np.empty(C, np.float64)
+    lat_c[lo.ravel()] = np.broadcast_to(lat_g[:, None], (gy, gx)).ravel() - 0.2
+    lat_c[up.ravel()] = np.broadcast_to(lat_g[:, None], (gy, gx)).ravel() + 0.2
+    lon_c[lo.ravel()] = np.broadcast_to(lon_g[None, :], (gy, gx)).ravel()
+    lon_c[up.ravel()] = np.broadcast_to(lon_g[None, :], (gy, gx)).ravel() + 0.2
+    return nb + 1, lat_c, lon_c
+
+
+@functools.lru_cache(maxsize=None)
+def symmetrised(n_cells: int) -> np.ndarray:
+    """The symmetrised 0-based (K', C) table of ``tri_mesh(n_cells)``, which
+    the tracker labels on (made once a size)."""
+    from marex_tpu_torch.track import _symmetrize_neighbours
+
+    return _symmetrize_neighbours(tri_mesh(n_cells)[0] - 1)
+
+
+def make_mesh_sst(n_years: int, n_cells: int, seed: int, device: str):
+    """Synthetic daily SST (T, C) float32 on the triangle-pair mesh, generated
+    on ``device``: AR(1) noise, a seasonal cycle, in two latitude bands a pair
+    of warm patches that converge and join each season (days 60-140), and 40
+    blinking blobs of log-spaced sizes — the recipe of
+    ``bench._make_unstructured_impl``, with torch's generator for the noise.
+    Returns (sst, coords, neighbours (3, C) 1-based int32, cell areas (C,))."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    nb, lat_c, lon_c = tri_mesh(n_cells)
+    C = nb.shape[1]
+    times = pd.date_range("2000-01-01", periods=int(n_years * 365.25), freq="D").to_numpy()
+    T = len(times)
+    idx = pd.DatetimeIndex(times)
+    doy, years = idx.dayofyear.to_numpy(), idx.year.to_numpy()
+    lat = torch.tensor(lat_c, dtype=torch.float32, device=device)
+    lon = torch.tensor(lon_c, dtype=torch.float32, device=device)
+    coslat = torch.cos(torch.deg2rad(lat))
+    seas = torch.tensor(3.0 * np.cos(2 * np.pi * (doy - 30) / 365.25), dtype=torch.float32, device=device)
+
+    sst = torch.empty((T, C), dtype=torch.float32, device=device)
+    noise = torch.randn(C, generator=g, device=device)
+    for t in range(T):
+        if t:
+            noise = 0.8 * noise + 0.6 * torch.randn(C, generator=g, device=device)
+        sst[t] = noise + 15.0 + seas[t] * coslat
+
+    def within(lat0: float, lon0: float, dlat: float, dlon: float) -> torch.Tensor:
+        d = (lon - lon0).abs()
+        return ((lat - lat0).abs() < dlat) & (torch.minimum(d, 360.0 - d) < dlon)
+
+    for t in range(T):
+        d, yr = int(doy[t]), int(years[t] - years.min())
+        if 60 <= d <= 140:
+            for lat0, lon0 in ((15.0, 40.0), (-15.0, 200.0)):
+                for sgn in (-1, 1):
+                    clon = ((lon0 + yr * 137.0) % 360.0 + sgn * max(60 - (d - 60) * 1.6, 8.0)) % 360.0
+                    sst[t] += 5.0 * within(lat0, clon, 12.0, 18.0)
+    rng = np.random.default_rng(seed + 1000)
+    n_blobs = 40
+    b_lat, b_lon = rng.uniform(-55, 55, n_blobs), rng.uniform(0, 360, n_blobs)
+    b_rad = np.geomspace(1.5, 10.0, n_blobs)  # degrees
+    on = rng.random((T, n_blobs)) < 0.25
+    for i in range(n_blobs):
+        cells = within(float(b_lat[i]), float(b_lon[i]), float(b_rad[i]), float(b_rad[i])).nonzero().squeeze(1)
+        days = torch.from_numpy(np.nonzero(on[:, i])[0]).to(device)
+        if cells.numel() and days.numel():
+            sst[days[:, None], cells[None, :]] += 5.0
+    coords = {"time": times, "lat": ("ncells", lat_c), "lon": ("ncells", lon_c)}
+    return sst, coords, nb, np.full(C, 1.0e7, np.float32)
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -221,23 +359,29 @@ class Split:
         self.pending.clear()
 
 
-def fused_fixpoint(data: torch.Tensor, depth3: bool, split: Split, keep=()):
+def fused_fixpoint(data: torch.Tensor, depth3: bool, split: Split, keep=(), neighbours=None):
     """A CCL fixpoint of ``ops/label.py`` run by hand, each launch timed
-    into ``split``; returns (iterations, {k: (labels, out) before step k}
-    for k in ``keep``)."""
+    into ``split``: on a (T, H, W) grid, or with ``neighbours`` (the
+    symmetrised (K, C) table) on a (T, C) mesh; returns (iterations,
+    {k: (labels, out) before step k} for k in ``keep``)."""
+    from marex_tpu_torch.ops.graph_step import graph_step
     from marex_tpu_torch.ops.min_stencil import ccl_step, pointer_jump
 
-    T, H, W = data.shape
-    S = T * H * W if depth3 else H * W
+    T = data.shape[0]
+    S = data.numel() if depth3 else data[0].numel()
+    if neighbours is None:
+        name, step = "ccl_step", lambda: ccl_step(a, data, b, depth3=depth3)
+    else:
+        name, step = "graph_step", lambda: graph_step(a, data, neighbours, b)
     idx = torch.arange(S, dtype=torch.int32, device=data.device)
-    a = (idx if depth3 else idx.repeat(T)).view(T, H, W).masked_fill_(~data, BIG)
+    a = (idx if depth3 else idx.repeat(T)).view(data.shape).masked_fill_(~data, BIG)
     b = torch.full_like(a, BIG)
     del idx
     snaps = {}
     for it in range(1, 200):
         if it in keep:
             snaps[it] = (a.clone(), b.clone())
-        flag = split.time("ccl_step", lambda: ccl_step(a, data, b, depth3=depth3))
+        flag = split.time(name, step)
         changed = bool(flag.item())
         split.settle()
         if not changed:
@@ -293,18 +437,18 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor, chunk: int = 1 << 26) -> int:
     )
 
 
-def run_slice(mx, sst, coords, device: str, ny: int, merge: bool = False, detect: dict = DETECT_FIXED):
-    """detect + track through the entry points; returns (ds, events, merges
-    (None without merging), tracker, detect wall, track wall, detect peak)."""
+def run_path(device: str, detect, make_tracker, merge: bool):
+    """``detect()`` then ``make_tracker(ds).run(...)``, each ending in a
+    synchronise; returns (ds, events, merges (None without merging), tracker,
+    detect wall, track wall, detect peak)."""
     t0 = time.perf_counter()
-    ds = mx.preprocess_data(mx.Field(sst, ("time", "lat", "lon"), coords, name="sst"), device=device, quiet=True,
-                            **detect)
+    ds = detect()
     detect_peak = 0
     if device == "cuda":
         torch.cuda.synchronize()
         detect_peak = torch.cuda.max_memory_allocated()
     t1 = time.perf_counter()
-    tr = mx.tracker(ds.extreme_events, ds.mask, device=device, quiet=True, **track_kwargs(ny, merge))
+    tr = make_tracker(ds)
     events, merges = tr.run(return_merges=True) if merge else (tr.run(), None)
     if device == "cuda":
         torch.cuda.synchronize()
@@ -312,43 +456,93 @@ def run_slice(mx, sst, coords, device: str, ny: int, merge: bool = False, detect
     return ds, events, merges, tr, t1 - t0, t2 - t1, detect_peak
 
 
-def compare_merge_runs(ev_g, mg_g, tr_g, ev_c, mg_c) -> dict:
-    """Config 4 on CUDA against the CPU: integer and boolean outputs and the
-    merge records bit-identical, area and centroid within 1e-5 (relative, or
-    absolute near 0: areas are km^2); raises on any difference. Returns the
+def run_slice(mx, sst, coords, device: str, ny: int, merge: bool = False, detect: dict = DETECT_FIXED):
+    """detect + track on a global grid through the entry points."""
+    field = mx.Field(sst, ("time", "lat", "lon"), coords, name="sst")
+    return run_path(
+        device,
+        lambda: mx.preprocess_data(field, device=device, quiet=True, **detect),
+        lambda ds: mx.tracker(ds.extreme_events, ds.mask, device=device, quiet=True, **track_kwargs(ny, merge)),
+        merge,
+    )
+
+
+def run_mesh(mx, sst, coords, nb, areas, device: str):
+    """Config 5 through the entry points: detect on (time, cell) data with
+    the mesh's table and areas passed through, then the mesh tracker with
+    merging."""
+    field = mx.Field(sst, ("time", "ncells"), coords, name="sst")
+    return run_path(
+        device,
+        lambda: mx.preprocess_data(
+            field, dimensions=MESH_DIMS, coordinates=MESH_COORDS, neighbours=mx.Field(nb, ("nv", "ncells"), name="neighbours"),
+            cell_areas=mx.Field(areas, ("ncells",), name="cell_areas"), device=device, quiet=True, **DETECT_FIXED,
+        ),
+        lambda ds: mx.tracker(ds.extreme_events, ds.mask, neighbours=ds.neighbours, cell_areas=ds.cell_areas,
+                              device=device, quiet=True, **TRACK_CONFIG5),
+        True,
+    )
+
+
+def run_regional(mx, sst, coords, device: str, track_kw: dict, days=None):
+    """Config 3 through the entry points: config 1's detect, then
+    ``regional_tracker`` (on the first ``days`` days when given)."""
+    field = mx.Field(sst, ("time", "lat", "lon"), coords, name="sst")
+
+    def make_tracker(ds):
+        extremes = ds.extreme_events if days is None else ds.extreme_events.isel(time=np.arange(days))
+        return mx.regional_tracker(extremes, ds.mask, "degrees", device=device, quiet=True, **track_kw)
+
+    return run_path(device, lambda: mx.preprocess_data(field, device=device, quiet=True, **DETECT_FIXED), make_tracker,
+                    track_kw["allow_merging"])
+
+
+def compare_merge_runs(ev_g, mg_g, tr_g, ev_c, mg_c, what: str = "merge slice") -> dict:
+    """A merge path on CUDA against the CPU: integer and boolean outputs and
+    the merge records bit-identical, area and centroid within 1e-5 (relative,
+    or absolute near 0: areas are km^2, on a mesh m^2); raises on any
+    difference, and when no merge or no partition happened. Returns the
     largest float differences."""
     for key in ("ID_field", "global_ID", "presence", "merge_ledger", "time_start", "time_end"):
         if not np.array_equal(ev_g[key].values, ev_c[key].values):
-            raise AssertionError(f"merge slice: {key} differs between CUDA and CPU")
+            raise AssertionError(f"{what}: {key} differs between CUDA and CPU")
     for key in ("parent_IDs", "child_IDs", "overlap_areas", "merge_time", "n_parents", "n_children"):
         if not np.array_equal(mg_g[key].values, mg_c[key].values):
-            raise AssertionError(f"merge slice: merges {key} differs between CUDA and CPU")
+            raise AssertionError(f"{what}: merges {key} differs between CUDA and CPU")
     diff = {}
     for key in ("area", "centroid"):
         a, b = ev_g[key].values.astype(np.float64), ev_c[key].values.astype(np.float64)
-        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=f"merge slice: {key} NaN pattern")
-        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5, err_msg=f"merge slice: {key}")
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=f"{what}: {key} NaN pattern")
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5, err_msg=f"{what}: {key}")
         fin = np.isfinite(a)
         d = np.abs(a[fin] - b[fin])
         diff[key] = (float(d.max()) if d.size else 0.0, float((d / np.maximum(np.abs(b[fin]), 1e-30)).max()) if d.size else 0.0)
     for key in ("N_events_final", "total_merges"):
         if ev_g.attrs[key] != ev_c.attrs[key]:
-            raise AssertionError(f"merge slice: {key} {ev_g.attrs[key]} (CUDA) vs {ev_c.attrs[key]} (CPU)")
+            raise AssertionError(f"{what}: {key} {ev_g.attrs[key]} (CUDA) vs {ev_c.attrs[key]} (CPU)")
     if ev_g.attrs["total_merges"] <= 0 or tr_g.dispatch_counts.get("partition", 0) <= 0:
-        raise AssertionError(f"merge slice: no merge or no partition ran: {ev_g.attrs}, {tr_g.dispatch_counts}")
+        raise AssertionError(f"{what}: no merge or no partition ran: {ev_g.attrs}, {tr_g.dispatch_counts}")
     return diff
 
 
-def check_merge_outputs(events, merges, T: int, ny: int, nx: int) -> int:
-    """The merge path's outputs are whole: ids 0..N over the field, a (time,
-    ID) table that marks exactly the present events, finite positive areas
-    and in-range centroids where an event is present. Returns N."""
+def check_event_ids(events, shape: tuple) -> int:
+    """``ID_field`` is int32 of ``shape`` and holds the ids 0..N_events_final,
+    with at least one event. Returns N."""
     n = int(events.attrs["N_events_final"])
     ids = events["ID_field"].data
-    if tuple(ids.shape) != (T, ny, nx) or ids.dtype != torch.int32:
+    if tuple(ids.shape) != tuple(shape) or ids.dtype != torch.int32:
         raise AssertionError(f"ID_field has shape {tuple(ids.shape)} and dtype {ids.dtype}")
     if n <= 0 or int(ids.max()) != n or int(ids.min()) != 0:
         raise AssertionError(f"ID_field range [{int(ids.min())}, {int(ids.max())}] vs N_events_final {n}")
+    return n
+
+
+def check_merge_outputs(events, merges, shape: tuple) -> int:
+    """A merge path's outputs are whole: ids 0..N over the field of ``shape``,
+    a (time, ID) table that marks exactly the present events, finite positive
+    areas and in-range centroids where an event is present. Returns N."""
+    n = check_event_ids(events, shape)
+    T = shape[0]
     pres = events["presence"].data
     gid = events["global_ID"].data
     if tuple(pres.shape) != (T, n) or not torch.equal(pres, gid > 0) or not bool(pres.any(0).all()):
@@ -409,7 +603,7 @@ def slices_against_cpu(mx, ny: int, nx: int, seed: int, device: str) -> None:
     print(f"merge slice stage_walls cuda: {json.dumps(tr_g.stage_walls)}")
     print(f"merge slice stage_walls cpu: {json.dumps(tr_c.stage_walls)}")
     del ev_g, mg_g, tr_g, ev_c, mg_c, tr_c
-    detect_methods_against_cpu(mx, sst, sst_cpu, coords, ny, nx, device)
+    detect_methods_against_cpu(mx, sst, sst_cpu, coords, ny, nx, seed, device)
 
 
 def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
@@ -417,16 +611,21 @@ def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
     return a.dtype == b.dtype and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
 
 
-def detect_methods_against_cpu(mx, sst, sst_cpu, coords, ny: int, nx: int, device: str) -> None:
+def detect_methods_against_cpu(mx, sst, sst_cpu, coords, ny: int, nx: int, seed: int, device: str) -> None:
     """Phase 4, the other detect methods on ``device`` and on the CPU: config
     2 (shifting baseline + approximate Hobday thresholds, then the no-merge
-    tracker) with ``dat_anomaly``, ``thresholds``, ``extreme_events``,
-    ``mask`` and ``ID_field`` bit-identical; the exact percentile (Hobday and
-    global, on the fixed baseline) with thresholds and extremes
+    tracker) on a field of its own with half the rows and the full width
+    (the CPU's dense Hobday histogram takes minutes at 180 x 360; at 90 x 360
+    the CPU still cuts it into square tiles whose halos cross the lon seam,
+    the card into full-width row bands) with ``dat_anomaly``, ``thresholds``,
+    ``extreme_events``, ``mask`` and ``ID_field`` bit-identical; the exact
+    percentile (Hobday and global, on the fixed baseline) with thresholds and extremes
     bit-identical; ``detrend_harmonic`` with ``std_normalise`` with floats
     within 1e-5 and each differing extreme within 1e-5 of its threshold."""
-    ds_g, ev_g, _, _, det_g, trk_g, _ = run_slice(mx, sst, coords, device, ny, detect=DETECT_CONFIG2)
-    ds_c, ev_c, _, _, det_c, trk_c, _ = run_slice(mx, sst_cpu, coords, "cpu", ny, detect=DETECT_CONFIG2)
+    half, half_coords = make_sst(3, ny // 2, nx, seed, device)
+    ds_g, ev_g, _, _, det_g, trk_g, _ = run_slice(mx, half, half_coords, device, ny // 2, detect=DETECT_CONFIG2)
+    ds_c, ev_c, _, _, det_c, trk_c, _ = run_slice(mx, half.cpu(), half_coords, "cpu", ny // 2, detect=DETECT_CONFIG2)
+    del half
     for key in ("dat_anomaly", "thresholds", "extreme_events", "mask"):
         if not same_bits(ds_g[key].values, ds_c[key].values):
             raise AssertionError(f"config 2 slice: {key} differs between CUDA and CPU")
@@ -543,34 +742,16 @@ def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str) -> d
             fn.launch_count = 0
         ds, events, merges, tr, t_det, t_trk, detect_peak = run_slice(mx, sst, coords, device, ny, merge, detect)
         launches[path] = {k: fn.launch_count for k, fn in kernels.items()}
-        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
         thr, mask = ds["thresholds"].data, ds["mask"].data
         if not bool(torch.isfinite(thr[..., mask]).all()):
             raise AssertionError("non-finite thresholds over the ocean")
         T = ds["extreme_events"].shape[0]
         if merge:
-            n_events = check_merge_outputs(events, merges, T, ny, nx)
+            check_merge_outputs(events, merges, (T, ny, nx))
         else:
-            n_events = int(events.attrs["N_events_final"])
-            ids = events["ID_field"].data
-            if tuple(ids.shape) != (T, ny, nx) or ids.dtype != torch.int32:
-                raise AssertionError(f"ID_field has shape {tuple(ids.shape)} and dtype {ids.dtype}")
-            if n_events <= 0 or int(ids.max()) != n_events or int(ids.min()) != 0:
-                raise AssertionError(f"ID_field range [{int(ids.min())}, {int(ids.max())}] vs N_events_final {n_events}")
-            del ids
-        print(
-            f"{path} {sst.shape[0]} x {ny} x {nx} (tracked {T} days): detect {t_det:.3f} s, track {t_trk:.3f} s, "
-            f"{sst.shape[0] * ny * nx / (t_det + t_trk):.4g} gridpoint-days/s"
-        )
-        print(f"  stage_walls: {json.dumps(tr.stage_walls)}")
-        print(f"  N_events_final: {n_events}; attrs: "
-              f"{json.dumps({k: v for k, v in events.attrs.items() if k.startswith('N_') or 'merge' in k})}")
-        if merge:
-            print(f"  dispatch_counts: {json.dumps(tr.dispatch_counts)}")
-        print(f"  ccl iterations: {json.dumps(tr.ccl_iterations)}")
-        print(f"  launch counts: {json.dumps(launches[path])}")
-        print(f"  max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB); after detect {detect_peak / 2**30:.2f} GiB")
-        print(f"  stage_peak_bytes (running max): {json.dumps(tr.stage_peak_bytes)}")
+            check_event_ids(events, (T, ny, nx))
+        report_path(f"{path} {sst.shape[0]} x {ny} x {nx} (tracked {T} days)", sst.numel(), events, tr, t_det, t_trk,
+                    detect_peak, launches[path])
         del events, merges, tr, thr, mask
         if detect is DETECT_CONFIG2:
             config2_detect_split(mx, sst, coords, ds, decompose_time(ds.coords["time"].values))
@@ -722,6 +903,322 @@ def spacetime_labels(data: torch.Tensor) -> dict:
     return result
 
 
+def regional_kwargs(ny: int, merge: bool = False) -> dict:
+    """Config 3's tracking parameters at 360 x 720, with R_fill and the area
+    floor scaled with resolution on coarser grids (as ``track_kwargs``);
+    ``merge`` turns the split/merge march on, with nearest-cell partitioning."""
+    s = min(ny / 360.0, 1.0)
+    kw = dict(TRACK_CONFIG3, R_fill=max(int(round(TRACK_CONFIG3["R_fill"] * s)), 2),
+              area_filter_absolute=max(int(round(TRACK_CONFIG3["area_filter_absolute"] * s * s)), 4))
+    if merge:
+        kw.update(allow_merging=True, nn_partitioning=True, overlap_threshold=0.25)
+    return kw
+
+
+def graph_step_against_plain(g: torch.Generator, seed: int) -> int:
+    """Phase 3, the mesh step against its plain version, bit-identical in
+    ``out`` and the flag: on the triangle-pair mesh's table (as given and
+    symmetrised, small and at config 5's 1,048,352 cells) and on random
+    directed tables after symmetrising (K' > 3, ``-1`` entries, ragged C),
+    with ``out`` BIG-filled and stale, slice counts that end inside a chunk
+    of slices; at 1,048,352 cells also 67 slices and config 5's own 730,
+    where each block walks several chunks of slices (about 3 and 31; on the
+    smaller tables a block has one chunk); and the whole fixpoint's labels,
+    counts and iterations against the CPU's. Returns (number of checks,
+    largest difference seen)."""
+    from marex_tpu_torch.ops.graph_step import neighbour_min_plain
+    from marex_tpu_torch.ops.label import label_slices_unstructured
+    from marex_tpu_torch.track import _symmetrize_neighbours
+
+    rng = np.random.default_rng(seed)
+
+    def random_table(C: int, K: int, missing: float) -> np.ndarray:
+        nb = rng.integers(0, C, (K, C)).astype(np.int32)
+        nb[rng.random((K, C)) < missing] = -1
+        return nb
+
+    tables = [
+        ("tri_mesh(4096) as given", tri_mesh(4096)[0] - 1, (1, 5, 19)),
+        ("tri_mesh(4096) symmetrised", symmetrised(4096), (1, 19)),
+        ("random K=3 C=30011 symmetrised", _symmetrize_neighbours(random_table(30011, 3, 0.3)), (1, 8, 19)),
+        ("random K=2 C=777 sparse symmetrised", _symmetrize_neighbours(random_table(777, 2, 0.6)), (3,)),
+        ("one cell", np.full((3, 1), -1, np.int32), (2,)),
+        (f"tri_mesh({MESH_CELLS}) symmetrised", symmetrised(MESH_CELLS), (11, 67, MESH_DAYS)),
+    ]
+    n_checks = worst = 0
+    for name, table, slice_counts in tables:
+        nb = torch.from_numpy(table).cuda()
+        C = nb.shape[1]
+        for T in slice_counts:
+            for density in (0.1, 0.6):
+                data = torch.rand((T, C), generator=g, device="cuda") < density
+                lab = torch.randint(0, C, (T, C), generator=g, device="cuda", dtype=torch.int32)
+                lab.masked_fill_(~data & (torch.rand((T, C), generator=g, device="cuda") < 0.5), BIG)
+                m = neighbour_min_plain(lab, data, nb)
+                up = torch.randint(0, 3, (T, C), generator=g, device="cuda", dtype=torch.int32)
+                for what, out0 in (("BIG", torch.full_like(lab, BIG)), ("stale", torch.where(m >= BIG - 2, m, m + up))):
+                    diff = graph_step_diff(lab, data, nb, out0)
+                    worst = max(worst, diff)
+                    if diff:
+                        raise AssertionError(f"graph_step {name} T={T} density={density} out={what}: max diff {diff}")
+                    n_checks += 1
+                del lab, m, up, out0
+            # the whole fixpoint: the card's labels, counts and iterations equal the CPU's
+            if C <= 30011:
+                lab_g, counts_g, it_g = label_slices_unstructured(data, nb)
+                lab_c, counts_c, it_c = label_slices_unstructured(data.cpu(), nb.cpu())
+                if not torch.equal(lab_g.cpu(), lab_c) or not torch.equal(counts_g.cpu(), counts_c) or it_g != it_c:
+                    raise AssertionError(f"mesh CCL {name} T={T}: CUDA differs from the CPU ({it_g} vs {it_c} iterations)")
+                n_checks += 1
+            del data
+        del nb
+        torch.cuda.empty_cache()
+    return n_checks, worst
+
+
+def mesh_step_bound_ms(data: torch.Tensor, K: int) -> float:
+    """The least time for one mesh step on this (T, C) field: the mask read
+    for every cell (1 B), the label read and ``out`` written for the active
+    cells (8 B each; the kernel touches nothing else of an inactive cell),
+    and the (K, C) table read once, over the card's memory rate."""
+    T, C = data.shape
+    return bound_ms(T * C + 8 * int(data.sum()) + 4 * K * C)
+
+
+def graph_step_diff(lab: torch.Tensor, data: torch.Tensor, table: torch.Tensor, out0: torch.Tensor) -> int:
+    """``graph_step`` against ``graph_step_plain`` from copies of ``out0``:
+    the largest difference in ``out`` and in the flag."""
+    from marex_tpu_torch.ops.graph_step import graph_step, graph_step_plain
+
+    out_k, out_p = out0.clone(), out0.clone()
+    flag_k = graph_step(lab, data, table, out_k)
+    flag_p = graph_step_plain(lab, data, table, out_p)
+    return max(max_abs_diff(out_k, out_p), abs(int(flag_k) - int(flag_p)))
+
+
+def graph_step_yardsticks(lab: torch.Tensor, data: torch.Tensor, table: torch.Tensor, out0: torch.Tensor,
+                          reps: int) -> dict:
+    """``graph_step``'s plain version, timed from a fresh copy of ``out0``,
+    and the nearest single PyTorch calls (never called by the port): the
+    gather of every table row (``index_select``) and the hook's
+    ``scatter_reduce_`` amin; milliseconds, and the cells the hook scatters."""
+    from marex_tpu_torch.ops.graph_step import graph_step_plain, neighbour_min_plain
+
+    out = torch.empty_like(out0)
+    t_plain = cuda_ms_fresh(lambda: graph_step_plain(lab, data, table, out), lambda: out.copy_(out0), reps=reps)
+    del out
+    flat = table.clamp_min(0).view(-1).long()
+    t_gather = cuda_ms(lambda: torch.index_select(lab, 1, flat), reps=3)
+    del flat
+    m = neighbour_min_plain(lab, data, table)
+    sidx, src = hook_scatter_inputs(lab, m, lab.shape[1])
+    buf = m.clone().view(-1)
+    t_scatter = cuda_ms_fresh(lambda: buf.scatter_reduce_(0, sidx, src, "amin"), lambda: buf.copy_(m.view(-1)))
+    return dict(plain=t_plain, gather=t_gather, scatter=t_scatter, hooked=sidx.numel())
+
+
+def graph_step_random_times(g: torch.Generator) -> None:
+    """Phase 3, the mesh step timed at (64, 1048352) on random labels, from
+    a fresh copy of its output, beside its plain version and the nearest
+    single PyTorch calls (``graph_step_yardsticks``)."""
+    from marex_tpu_torch.ops.graph_step import graph_step
+
+    nb = torch.from_numpy(symmetrised(MESH_CELLS)).cuda()
+    K, C = nb.shape
+    T = 64
+    lab = torch.randint(0, C, (T, C), generator=g, device="cuda", dtype=torch.int32)
+    data = torch.rand((T, C), generator=g, device="cuda") < 0.3
+    big = torch.full_like(lab, BIG)
+    out = torch.empty_like(lab)
+    t_kernel = cuda_ms_fresh(lambda: graph_step(lab, data, nb, out), lambda: out.copy_(big))
+    y = graph_step_yardsticks(lab, data, nb, big, reps=2)
+    t_bound = mesh_step_bound_ms(data, K)
+    print(f"time graph_step at ({T}, {C}), K={K}, random labels: kernel {t_kernel:.4f} ms, plain {y['plain']:.4f} ms, "
+          f"library index_select {y['gather']:.4f} ms, hook scatter_reduce amin {y['scatter']:.4f} ms, bound "
+          f"{t_bound:.4f} ms ({100 * t_bound / t_kernel:.0f} % of it)")
+
+
+def mesh_against_cpu(mx, seed: int, device: str) -> None:
+    """Phase 4, config 5 at 2 yr x 32768 cells on ``device`` and on the CPU:
+    detect's booleans, every integer output and the merge records
+    bit-identical, floats within 1e-5, the same fixpoint iterations, and
+    merges and partitions that really happened."""
+    sst, coords, nb, areas = make_mesh_sst(2, 32768, seed, device)
+    ds_g, ev_g, mg_g, tr_g, det_g, trk_g, _ = run_mesh(mx, sst, coords, nb, areas, device)
+    ds_c, ev_c, mg_c, tr_c, det_c, trk_c, _ = run_mesh(mx, sst.cpu(), coords, nb, areas, "cpu")
+    for key in ("extreme_events", "mask", "neighbours", "cell_areas"):
+        if not np.array_equal(ds_g[key].values, ds_c[key].values):
+            raise AssertionError(f"mesh slice: {key} differs between CUDA and CPU")
+    float_diff = {}
+    for key in ("dat_anomaly", "thresholds"):
+        float_diff[key] = float(np.nanmax(np.abs(ds_g[key].values - ds_c[key].values)))
+        if not float_diff[key] <= 1e-5:
+            raise AssertionError(f"mesh slice: {key} differs by {float_diff[key]} > 1e-5")
+    diff = compare_merge_runs(ev_g, mg_g, tr_g, ev_c, mg_c, "mesh slice")
+    if tr_g.ccl_iterations != tr_c.ccl_iterations:
+        raise AssertionError(f"mesh slice: fixpoint iterations {tr_g.ccl_iterations} (CUDA) vs {tr_c.ccl_iterations} (CPU)")
+    check_merge_outputs(ev_g, mg_g, tuple(sst.shape))
+    attrs = {k: ev_g.attrs[k] for k in ("N_objects_prefiltered", "N_objects_filtered", "N_events_final", "total_merges")}
+    print(
+        f"mesh slice (config 5) {tuple(sst.shape)}: CUDA == CPU (extreme_events, mask, ID_field, global_ID, presence, "
+        f"merge_ledger and merge records bit-identical; max |diff| dat_anomaly {float_diff['dat_anomaly']}, thresholds "
+        f"{float_diff['thresholds']}, (abs, rel) area {diff['area']}, centroid {diff['centroid']}); {attrs}; dispatches "
+        f"{tr_g.dispatch_counts}; ccl iterations {tr_g.ccl_iterations}; cuda detect {det_g:.3f} s track {trk_g:.3f} s; "
+        f"cpu detect {det_c:.3f} s track {trk_c:.3f} s"
+    )
+
+
+def regional_against_cpu(mx, seed: int, device: str) -> None:
+    """Phase 4, config 3 at 3 yr x 90 x 180 on ``device`` and on the CPU:
+    ``extreme_events``, ``mask``, ``ID_field`` and attrs bit-identical; then
+    the same domain's first 400 days with merging on (nearest-cell
+    partitioning with no seam), held like config 4."""
+    ny, nx = 90, 180
+    sst, coords = make_sst(3, ny, nx, seed, device, **REGION)
+    sst_cpu = sst.cpu()
+    ds_g, ev_g, _, tr_g, det_g, trk_g, _ = run_regional(mx, sst, coords, device, regional_kwargs(ny))
+    ds_c, ev_c, _, tr_c, det_c, trk_c, _ = run_regional(mx, sst_cpu, coords, "cpu", regional_kwargs(ny))
+    for key in ("extreme_events", "mask"):
+        if not np.array_equal(ds_g[key].values, ds_c[key].values):
+            raise AssertionError(f"regional slice: {key} differs between CUDA and CPU")
+    if not np.array_equal(ev_g["ID_field"].values, ev_c["ID_field"].values) or ev_g.attrs != ev_c.attrs:
+        raise AssertionError("regional slice: ID_field or attrs differ between CUDA and CPU")
+    if ev_g.attrs["N_events_final"] <= 0 or tr_g.ccl_iterations != tr_c.ccl_iterations:
+        raise AssertionError(f"regional slice: no event, or iterations differ: {ev_g.attrs}, {tr_g.ccl_iterations}")
+    print(
+        f"regional slice (config 3) 3yr x {ny} x {nx}: CUDA == CPU (extreme_events, mask, ID_field, attrs "
+        f"bit-identical); N_events_final {ev_g.attrs['N_events_final']}; ccl iterations {tr_g.ccl_iterations}; "
+        f"cuda detect {det_g:.3f} s track {trk_g:.3f} s; cpu detect {det_c:.3f} s track {trk_c:.3f} s"
+    )
+    del ds_g, ev_g, tr_g, ds_c, ev_c, tr_c
+    days = 400  # the first year's converging pairs (days 150-270) are enough merges
+    _, ev_g, mg_g, tr_g, _, trk_g, _ = run_regional(mx, sst, coords, device, regional_kwargs(ny, merge=True), days)
+    _, ev_c, mg_c, tr_c, _, trk_c, _ = run_regional(mx, sst_cpu, coords, "cpu", regional_kwargs(ny, merge=True), days)
+    diff = compare_merge_runs(ev_g, mg_g, tr_g, ev_c, mg_c, "regional merge slice")
+    print(
+        f"regional merge slice {days} d x {ny} x {nx}: CUDA == CPU (integer outputs and merge records bit-identical; max "
+        f"|diff| (abs, rel) area {diff['area']}, centroid {diff['centroid']}); N_events_final "
+        f"{ev_g.attrs['N_events_final']}, total_merges {ev_g.attrs['total_merges']}; dispatches {tr_g.dispatch_counts}; "
+        f"cuda track {trk_g:.3f} s; cpu track {trk_c:.3f} s"
+    )
+
+
+def report_path(path: str, n_in: int, events, tr, t_det: float, t_trk: float, detect_peak: int, counts: dict) -> None:
+    """Print one full-size path's walls, counts and memory."""
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{path}: detect {t_det:.3f} s, track {t_trk:.3f} s, {n_in / (t_det + t_trk):.4g} gridpoint-days/s")
+    print(f"  stage_walls: {json.dumps(tr.stage_walls)}")
+    print(f"  attrs: {json.dumps({k: v for k, v in events.attrs.items() if k.startswith('N_') or 'merge' in k or 'area' in k})}")
+    if tr.dispatch_counts:
+        print(f"  dispatch_counts: {json.dumps(tr.dispatch_counts)}")
+    print(f"  ccl iterations: {json.dumps(tr.ccl_iterations)}")
+    print(f"  launch counts: {json.dumps(counts)}")
+    print(f"  max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB); after detect {detect_peak / 2**30:.2f} GiB")
+    print(f"  stage_peak_bytes (running max): {json.dumps(tr.stage_peak_bytes)}")
+
+
+def mesh_and_regional_paths(mx, seed: int, kernels: dict) -> dict:
+    """Phase 5, this slice's paths at full size, generated on the card: config
+    5 (2 yr x 1,048,352 cells, merge tracking on the mesh) and config 3
+    (3 yr x 360 x 720 over lat 30..70, lon -30..40, the regional tracker
+    without merging), each with the kernels' launch counts set to 0 just
+    before it and read just after; returns {path: launch counts}."""
+    launches = {}
+
+    def start():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launch_count = 0
+
+    t0 = time.perf_counter()
+    sst, coords, nb, areas = make_mesh_sst(2, MESH_CELLS, seed, "cuda")
+    torch.cuda.synchronize()
+    print(f"mesh data: {tuple(sst.shape)} generated on the card in {time.perf_counter() - t0:.1f} s")
+    start()
+    ds, events, merges, tr, t_det, t_trk, detect_peak = run_mesh(mx, sst, coords, nb, areas, "cuda")
+    launches["config 5"] = {k: fn.launch_count for k, fn in kernels.items()}
+    if not bool(torch.isfinite(ds["thresholds"].data).all()):
+        raise AssertionError("config 5: non-finite thresholds")
+    check_merge_outputs(events, merges, tuple(sst.shape))
+    if int(events.attrs["total_merges"]) <= 0:
+        raise AssertionError(f"config 5: no merge on the mesh: {events.attrs}")
+    report_path(f"config 5 {tuple(sst.shape)}", sst.numel(), events, tr, t_det, t_trk, detect_peak, launches["config 5"])
+    del sst, ds, events, merges, tr
+
+    ny, nx = 360, 720
+    sst, coords = make_sst(3, ny, nx, seed, "cuda", **REGION)
+    start()
+    ds, events, _, tr, t_det, t_trk, detect_peak = run_regional(mx, sst, coords, "cuda", regional_kwargs(ny))
+    launches["config 3"] = {k: fn.launch_count for k, fn in kernels.items()}
+    thr, mask = ds["thresholds"].data, ds["mask"].data
+    if not bool(torch.isfinite(thr[..., mask]).all()):
+        raise AssertionError("config 3: non-finite thresholds over the ocean")
+    check_event_ids(events, tuple(sst.shape))
+    report_path(f"config 3 {tuple(sst.shape)}", sst.numel(), events, tr, t_det, t_trk, detect_peak, launches["config 3"])
+    return launches
+
+
+def mesh_filter_input(mx, seed: int):
+    """The area filter's input on config 5 at 2 yr x 1,048,352 cells (the
+    masked field after fill_spatial and fill_time), through the entry
+    points, and the symmetrised table it is labelled on, both on the card."""
+    sst, coords, nb, areas = make_mesh_sst(2, MESH_CELLS, seed, "cuda")
+    ds = mx.preprocess_data(
+        mx.Field(sst, ("time", "ncells"), coords, name="sst"), dimensions=MESH_DIMS, coordinates=MESH_COORDS,
+        device="cuda", quiet=True, **DETECT_FIXED,
+    )
+    del sst
+    tr = mx.tracker(ds.extreme_events, ds.mask, neighbours=mx.Field(nb, ("nv", "ncells")),
+                    cell_areas=mx.Field(areas, ("ncells",)), device="cuda", quiet=True, **TRACK_CONFIG5)
+    del ds
+    data = (tr.fill_time_gaps(tr.fill_holes(tr.data_bin.data)) & tr.mask_dev).contiguous()
+    return data, torch.from_numpy(tr.neighbours_sym).cuda()
+
+
+def mesh_labels(mx, seed: int) -> dict:
+    """Phase 6, the mesh fixpoint on config 5's own field (the area filter's
+    input at 2 yr x 1,048,352 cells, through the entry points), run by hand
+    with each launch timed; at its iterations 1, 4 and 8 (as far as it gets)
+    ``graph_step`` held against its plain version on those labels and that
+    stale output (bit-identical), and timed from a fresh copy of its output
+    beside its bound; at the middle one also beside its plain version and
+    the nearest single PyTorch calls (``graph_step_yardsticks``). Returns the
+    kernel's JSON fields."""
+    from marex_tpu_torch.ops.graph_step import graph_step
+
+    data, table = mesh_filter_input(mx, seed)
+    K = table.shape[0]
+    split = Split()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iters, snaps = fused_fixpoint(data, False, split, keep=(1, 4, 8), neighbours=table)
+    print(f"mesh fixpoint on config 5's field ({int(data.sum())} active cells of {data.numel()}, K={K}): {iters} "
+          f"iterations, wall {time.perf_counter() - t0:.4f} s; summed launch ms {json.dumps(split.ms)}")
+    print(f"  each launch (ms): {json.dumps(split.each)}")
+    out = torch.empty_like(data, dtype=torch.int32)
+    t_bound = mesh_step_bound_ms(data, K)
+    middle = sorted(snaps)[len(snaps) // 2]
+    result = {}
+    for k in sorted(snaps):
+        a, b = snaps.pop(k)
+        diff = graph_step_diff(a, data, table, b)
+        if diff:
+            raise AssertionError(f"graph_step on config 5's labels at iteration {k}: max diff {diff} from the plain version")
+        t_step = cuda_ms_fresh(lambda: graph_step(a, data, table, out), lambda: out.copy_(b))
+        line = (f"mesh iteration {k}: graph_step == plain version at {tuple(a.shape)}; {t_step:.4f} ms, bound "
+                f"{t_bound:.4f} ms ({100 * t_bound / t_step:.0f} % of it)")
+        if k == middle:
+            y = graph_step_yardsticks(a, data, table, b, reps=1)
+            line += (f"; plain {y['plain']:.4f} ms; library index_select of the {K} table rows {y['gather']:.4f} ms; "
+                     f"hook scatter_reduce amin {y['scatter']:.4f} ms ({y['hooked']} cells with m < lab)")
+            result = dict(ms=t_step, plain_ms=y["plain"], bound_ms=t_bound, bound_by="bytes", library_ms=y["gather"])
+        print(line)
+        del a, b
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -740,6 +1237,7 @@ def main() -> int:
 
     import marex_tpu_torch as mx
     from marex_tpu_torch import _cuda_build, _native
+    from marex_tpu_torch.ops.graph_step import graph_step
     from marex_tpu_torch.ops.min_stencil import (
         ccl_step,
         ccl_step_plain,
@@ -879,28 +1377,47 @@ def main() -> int:
     del lab, data, lab3, out, big, xp, xp3, flat, gidx
     torch.cuda.empty_cache()
 
-    # ---- 4. both paths, CUDA against CPU, at 3 yr x 180 x 360 --------------
-    slices_against_cpu(mx, 180, 360, args.seed, "cuda")
+    # the mesh step: against its plain version, then timed at (64, 1048352)
+    n_graph, err["graph_step"] = graph_step_against_plain(g, args.seed)
+    print(f"graph_step: {n_graph} checks bit-identical to the plain version (tolerance 0), up to config 5's own "
+          f"shape ({MESH_DAYS} slices of the mesh of {MESH_CELLS} cells asked for)")
+    graph_step_random_times(g)
     torch.cuda.empty_cache()
 
-    # ---- 5. both paths at full size ---------------------------------------
-    kernels = {"ccl_step": ccl_step, "pointer_jump": pointer_jump}
+    # ---- 4. the paths, CUDA against CPU, at small sizes ---------------------
+    slices_against_cpu(mx, 180, 360, args.seed, "cuda")
+    torch.cuda.empty_cache()
+    mesh_against_cpu(mx, args.seed, "cuda")
+    regional_against_cpu(mx, args.seed, "cuda")
+    torch.cuda.empty_cache()
+
+    # ---- 5. the paths at full size -----------------------------------------
+    kernels = {"ccl_step": ccl_step, "pointer_jump": pointer_jump, "graph_step": graph_step}
     launches = main_paths(mx, 720, 1440, args.seed, kernels, "cuda")
+    launches.update(mesh_and_regional_paths(mx, args.seed, kernels))
+    # the mesh path labels on graph_step, every gridded path on ccl_step; all jump
     for path, counts in launches.items():
-        if min(counts.values()) <= 0:
-            raise AssertionError(f"a kernel of the {path} was never launched: {counts}")
+        for k in ("graph_step" if path == "config 5" else "ccl_step", "pointer_jump"):
+            if counts[k] <= 0:
+                raise AssertionError(f"{k}, a kernel of {path}, was never launched there: {counts}")
+    torch.cuda.empty_cache()
 
-    # ---- 6. the kernels on the main path's own labels ----------------------
+    # ---- 6. the kernels on the paths' own labels -----------------------------
     label_times = main_path_labels(mx, args.seed)
+    torch.cuda.empty_cache()
+    label_times["graph_step"] = mesh_labels(mx, args.seed)
 
-    replaces = {"ccl_step": "marex_tpu/ops/pallas_kernels.py:60", "pointer_jump": "marex_tpu/ops/label.py:130"}
+    # each kernel's launches on the path that runs it: the merge path, and for the mesh step config 5
+    source = {"ccl_step": "min_stencil.cu", "pointer_jump": "min_stencil.cu", "graph_step": "graph_step.cu"}
+    replaces = {"ccl_step": "marex_tpu/ops/pallas_kernels.py:60", "pointer_jump": "marex_tpu/ops/label.py:130",
+                "graph_step": "marex_tpu/ops/label.py:307"}
     print(json.dumps({"kernels": [
         {
             "name": k,
             "route": "cuda",
-            "source": "marex_tpu_torch/csrc/min_stencil.cu",
+            "source": f"marex_tpu_torch/csrc/{source[k]}",
             "replaces": replaces[k],
-            "launches": launches["merge path (config 4)"][k],
+            "launches": launches["config 5" if k == "graph_step" else "merge path (config 4)"][k],
             "max_abs_err": err[k],
             **label_times[k],
         }

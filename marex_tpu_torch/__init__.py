@@ -11,16 +11,19 @@ The PyTorch port of ``marex_tpu``, with the same public entry points:
 ...                                allow_merging=True, nn_partitioning=True,
 ...                                overlap_threshold=0.25).run(return_merges=True)
 
-Ported so far: detect on gridded data (every anomaly method, the
-approximate and exact global and Hobday thresholds, ``std_normalise``), and
-gridded, global tracking without merging (3x3x3 event labelling) and with it
-(the split/merge march with nearest-cell or centroid partitioning, event
-clustering, per-event area, centroid, presence and merge ledger, and the
-merge records). Tensors stay on the device they were given; numpy inputs
-move to ``device`` (default ``"cuda"``). The connected-component labelling
-runs on hand-written CUDA kernels (``csrc/min_stencil.cu``), compiled with
-``nvcc`` at first use; event clustering uses the host union-find of
-``csrc/marex_host.cpp``, compiled with ``g++`` at first use.
+Ported so far: detect on gridded and unstructured data (every anomaly
+method, the approximate and exact global and Hobday thresholds,
+``std_normalise``), and tracking without merging (3x3x3 event labelling) and
+with it (the split/merge march with nearest-cell or centroid partitioning,
+event clustering, per-event area, centroid, presence and merge ledger, and
+the merge records) on global grids, on regional ones (``regional_tracker``)
+and on unstructured triangular meshes (``unstructured_grid=True`` with the
+mesh's ``neighbours`` and ``cell_areas``). Tensors stay on the device they
+were given; numpy inputs move to ``device`` (default ``"cuda"``). The
+connected-component labelling runs on hand-written CUDA kernels
+(``csrc/min_stencil.cu`` on a grid, ``csrc/graph_step.cu`` on a mesh),
+compiled with ``nvcc`` at first use; event clustering uses the host
+union-find of ``csrc/marex_host.cpp``, compiled with ``g++`` at first use.
 """
 
 from .core.field import Coord, Field, FieldSet, as_field, from_reference
@@ -43,7 +46,7 @@ from .exceptions import (
     TrackingError,
     VisualisationError,
 )
-from .track import tracker
+from .track import regional_tracker, tracker
 
 __all__ = [
     "Field",
@@ -58,6 +61,7 @@ __all__ = [
     "smoothed_rolling_climatology",
     "add_decimal_year",
     "tracker",
+    "regional_tracker",
     "MarExError",
     "DataValidationError",
     "CoordinateError",

@@ -2,9 +2,10 @@
 Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface. At first use they are
-compiled with ``nvcc`` for ``sm_90a`` (Hopper) into one shared library under
-``_build/`` (named by a hash of the sources and flags, so an edited source is
-rebuilt) and loaded with ``ctypes``. Nothing here runs at import time: the
+compiled with ``nvcc`` for ``sm_90a`` (Hopper), one ``nvcc`` a source and all
+started together, and linked into one shared library under ``_build/`` (named
+by a hash of the sources and flags, so an edited source is rebuilt) that is
+loaded with ``ctypes``. Nothing here runs at import time: the
 CPU-only test environment imports every module and has no ``nvcc``.
 """
 
@@ -22,11 +23,9 @@ from pathlib import Path
 from .exceptions import DeviceError
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = (_PKG / "csrc" / "min_stencil.cu",)
+_SOURCES = (_PKG / "csrc" / "min_stencil.cu", _PKG / "csrc" / "graph_step.cu")
 _BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: seconds the last build took in this process (0.0 when the library was already built)
 last_build_seconds = 0.0
@@ -64,18 +63,28 @@ def build() -> Path:
         last_build_seconds = 0.0
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
+    objects = [tmp.with_suffix(f".{src.stem}.o") for src in _SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise DeviceError(
-            "nvcc failed to build the CUDA kernels",
-            details=f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}",
-        )
+    compiles = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cmd in ([nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(_SOURCES, objects))
+    ]
+    try:
+        outputs = [(cmd, proc, *proc.communicate()) for cmd, proc in compiles]
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+        linked = subprocess.run(link, capture_output=True, text=True)
+        outputs.append((link, linked, linked.stdout, linked.stderr))
+        for cmd, proc, out, err in outputs:
+            if proc.returncode != 0:
+                raise DeviceError("nvcc failed to build the CUDA kernels", details=f"{' '.join(cmd)}\n{out}\n{err}")
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     last_build_seconds = time.perf_counter() - t0
-    last_build_log = proc.stderr
+    last_build_log = "".join(err for _, _, _, err in outputs)
     return lib
 
 
@@ -88,4 +97,6 @@ def kernel_library() -> ctypes.CDLL:
     lib.marex_ccl_step.restype = i
     lib.marex_pointer_jump.argtypes = [p, p, ll, ll, p]
     lib.marex_pointer_jump.restype = i
+    lib.marex_graph_step.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.marex_graph_step.restype = i
     return lib

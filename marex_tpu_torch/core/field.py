@@ -312,6 +312,8 @@ class Field:
             i = dims.index(Ellipsis)
             dims = tuple(named[:i] + rest + named[i:])
         axes = [self.dims.index(d) for d in dims]
+        if sorted(axes) != list(range(self.ndim)):
+            raise ValueError(f"transpose needs a permutation of {self.dims}, got {dims}")
         if axes == list(range(self.ndim)):
             return Field(self.data, dims, self.coords, self.name, self.attrs)
         if _is_torch(self.data):

@@ -1,15 +1,17 @@
 """
 MarEx detect on PyTorch: anomalies and extreme-event identification.
 
-The port of ``marex_tpu/detect.py`` on gridded data: the four anomaly
+The port of ``marex_tpu/detect.py`` on gridded (time, lat, lon) and
+unstructured (time, cell) data: the four anomaly
 methods (``detrend_harmonic`` with ``std_normalise``, ``shifting_baseline``,
 ``fixed_baseline``, ``detrend_fixed_baseline``), the two extreme methods
 (``global_extreme``, ``hobday_extreme``), each with the approximate and the
 exact percentile, the public shifting-baseline helpers, and the reference's
 validation and output contract (``dat_anomaly``, ``mask``,
 ``extreme_events``, ``thresholds`` and provenance attrs). Unstructured data
-and ``mesh`` raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+needs explicit ``coordinates``, takes no spatial Hobday window, and carries
+``neighbours`` and ``cell_areas`` through for the tracker. ``mesh`` raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 
 Device placement is explicit: a torch tensor input keeps its device; numpy
 or ``Field`` payloads move to ``device`` (default ``"cuda"``). Nothing falls
@@ -38,10 +40,7 @@ from .ops import quantile as _quant
 logger = get_logger(__name__)
 
 _ANOMALY_METHODS = ["detrend_harmonic", "shifting_baseline", "fixed_baseline", "detrend_fixed_baseline"]
-_NOT_PORTED = {
-    "mesh": "ROADMAP queue 1, item 11 (multi-GPU)",
-    "unstructured": "ROADMAP queue 1, item 9 (unstructured meshes)",
-}
+_NOT_PORTED = {"mesh": "ROADMAP queue 1, item 11 (multi-GPU)"}
 
 
 def _not_ported(what: str, key: str) -> NotImplementedError:
@@ -99,14 +98,29 @@ def _infer_dims_coords(
     da: Field, dimensions: Optional[Dict[str, str]], coordinates: Optional[Dict[str, str]]
 ) -> Tuple[Dict[str, str], Dict[str, str]]:
     """Apply the default dim/coord names {time: time, x: lon, y: lat} and
-    validate. Only gridded data (with a 'y' dimension) is ported."""
+    validate. Unstructured data (no 'y' dimension) needs explicit coordinates."""
     if dimensions is None:
         dimensions = {"time": "time", "x": "lon", "y": "lat"}
     if "time" not in dimensions:
         dimensions = {"time": "time", **dimensions}
-    if "y" not in dimensions:
-        raise _not_ported("Unstructured (2-D) data", "unstructured")
     if coordinates is None:
+        if "y" not in dimensions:
+            logger.error("Coordinates parameter required for unstructured data")
+            raise create_data_validation_error(
+                "Coordinates parameter must be explicitly specified for unstructured data",
+                details="Unstructured data requires coordinate names for x and y spatial coordinates",
+                suggestions=[
+                    "Specify coordinates parameter with spatial coordinate names",
+                    "Example: coordinates={'time': 'time', 'x': 'lon', 'y': 'lat'}",
+                    f"Your x dimension '{dimensions['x']}' needs associated coordinate names",
+                    "If data is gridded, ensure 'y' dimension is also specified",
+                ],
+                data_info={
+                    "data_structure": "unstructured (2D)",
+                    "dimensions": dimensions,
+                    "missing_coordinates": "x and y spatial coordinates",
+                },
+            )
         coordinates = dimensions.copy()
     elif "time" not in coordinates:
         coordinates = {"time": dimensions.get("time", "time"), **coordinates}
@@ -179,12 +193,15 @@ def _reject_reference_period(method_anomaly: str, reference_period) -> None:
 
 
 class _Staged:
-    """The input as a (T, H, W) float32 tensor on its device, with the
-    calendar decomposition of its time coordinate."""
+    """The input as a (T, H, W) float32 tensor (gridded) or a (T, C) one
+    (unstructured) on its device, with the calendar decomposition of its
+    time coordinate."""
 
     def __init__(self, da: Field, dimensions: Dict[str, str], coordinates: Dict[str, str], device):
         self.timedim = dimensions["time"]
-        self.spatial_dims = (dimensions["y"], dimensions["x"])
+        ydim = dimensions.get("y")
+        self.is_gridded = ydim is not None and ydim in da.dims
+        self.spatial_dims = (ydim, dimensions["x"]) if self.is_gridded else (dimensions["x"],)
         payload = da.data
         da = da.transpose(self.timedim, *self.spatial_dims)
         self.field = da
@@ -391,7 +408,7 @@ def preprocess_data(
         ds.attrs["window_days_hobday"] = window_days_hobday
     ds.attrs.update({"method_percentile": method_percentile, "precision": precision, "max_anomaly": max_anomaly})
 
-    n_extremes = int(ds["extreme_events"].data.sum(dim=(1, 2), dtype=torch.int32).sum())
+    n_extremes = int(ds["extreme_events"].data.flatten(1).sum(dim=1, dtype=torch.int32).sum())
     logger.info(f"Preprocessing completed successfully - {n_extremes} extreme events identified")
     return ds
 
@@ -733,7 +750,7 @@ def identify_extremes(
     Identify extreme events exceeding a percentile threshold; returns
     ``(extremes, thresholds)``: thresholds per point (``global_extreme``) or
     per day of year and point (``hobday_extreme``, with a default spatial
-    window of 5 on gridded data).
+    window of 5 on gridded data and none on a mesh).
     """
     if verbose is not None or quiet is not None:
         configure_logging(verbose=verbose, quiet=quiet)
@@ -792,7 +809,19 @@ def identify_extremes(
                 "min_supported_percentile": 60,
             },
         )
+    has_y_dim = "y" in dimensions and dimensions["y"] in da.dims
     if window_spatial_hobday is not None:
+        if not has_y_dim:
+            raise ConfigurationError(
+                "window_spatial_hobday is not supported for unstructured grids",
+                details="Spatial smoothing requires structured grids with both x and y dimensions",
+                suggestions=[
+                    "Remove the window_spatial_hobday parameter for unstructured grids",
+                    "Use structured grid data if spatial smoothing is required",
+                    "Set window_spatial_hobday=None to use default behavior",
+                ],
+                context={"grid_type": "unstructured", "window_spatial_hobday": window_spatial_hobday},
+            )
         if method_extreme != "hobday_extreme":
             raise ConfigurationError(
                 "window_spatial_hobday can only be used with method_extreme='hobday_extreme'",
@@ -821,9 +850,9 @@ def identify_extremes(
                 suggestions=[f"Use window_days_hobday={window_days_hobday + 1} or {window_days_hobday - 1}", "Choose an odd number"],
                 context={"window_days_hobday": window_days_hobday, "is_odd": False},
             )
-        if window_spatial_hobday is None:  # gridded data: the default 5 x 5 neighbourhood
+        if window_spatial_hobday is None and has_y_dim:  # gridded data: the default 5 x 5 neighbourhood
             window_spatial_hobday = 5
-        if window_spatial_hobday % 2 == 0:
+        if window_spatial_hobday is not None and window_spatial_hobday % 2 == 0:
             raise ConfigurationError(
                 "window_spatial_hobday must be an odd number",
                 details=f"window_spatial_hobday={window_spatial_hobday} is even, which would create asymmetric spatial windows.",
@@ -884,7 +913,7 @@ def _identify_extremes_hobday(
     da: Field,
     threshold_percentile: float,
     window_days_hobday: int,
-    window_spatial_hobday: int,
+    window_spatial_hobday: Optional[int],
     exact: bool,
     dimensions: Dict[str, str],
     coordinates: Dict[str, str],
@@ -896,7 +925,7 @@ def _identify_extremes_hobday(
     staged = _Staged(da, dimensions, coordinates, device)
     q = threshold_percentile / 100.0
     n_years = len(np.unique(staged.tinfo.year))
-    n_samples = n_years * window_days_hobday * window_spatial_hobday**2
+    n_samples = n_years * window_days_hobday * (window_spatial_hobday if window_spatial_hobday is not None else 1) ** 2
     n_above = n_samples * (1.0 - q)
     if n_above < 50:
         logger.warning(
@@ -908,7 +937,7 @@ def _identify_extremes_hobday(
     bin_edges, nbins, centers = _bins(precision, max_anomaly, staged.data.device)
     extremes, thr, pre_min, pre_max = _pipe.hobday_program(
         staged.flat, staged.tinfo, q, precision, centers, float(bin_edges[3]), nbins, window_days_hobday,
-        window_spatial_hobday, staged.spatial_shape, True, exact,
+        window_spatial_hobday, staged.spatial_shape if staged.is_gridded else None, True, exact,
     )
     if not exact:
         _warn_threshold_bounds(pre_min, pre_max, bin_edges, max_anomaly)

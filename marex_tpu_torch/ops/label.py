@@ -1,7 +1,8 @@
 """
-Connected-component labelling (CCL) of gridded binary fields.
+Connected-component labelling (CCL) of binary fields, gridded and on an
+unstructured mesh.
 
-The port of the gridded entry points of ``marex_tpu/ops/label.py``:
+The port of the device entry points of ``marex_tpu/ops/label.py``:
 
 * per-timestep 2-D labelling, 8-connected, periodic in x
   (:func:`label_slices_grid_roots`), with the per-slice root statistics of
@@ -9,18 +10,21 @@ The port of the gridded entry points of ``marex_tpu/ops/label.py``:
 * 3-D spatio-temporal labelling with full 3x3x3 connectivity
   (:func:`label_spacetime_roots`) and its dense relabel in root order
   (:func:`densify_spacetime_roots`);
+* per-timestep labelling on an unstructured mesh, over its neighbour table
+  (:func:`label_slices_unstructured`);
 * for merge tracking: per-slice dense labels from the area filter's kept
   roots (:func:`densify_slice_roots`), globally unique ids by cumulative
   offsets (:func:`offset_labels`) and the full-field id remap
   (:func:`remap_labels`).
 
 Every active cell starts labelled with its own flat index; each iteration
-runs the fused step kernel (the min-stencil and the hook: each cell whose
-label fell lowers the label of the cell its old label named) and one
-pointer jump, until the step's flag says that nothing changes. Two label
-buffers ping-pong with no copy: the step reads A and lowers B by
-``atomicMin`` (B always holds a field the next step's minimum can only
-lower, ``csrc/min_stencil.cu``), the jump reads B and writes A. A
+runs the fused step kernel (the min over the stencil, or over the mesh's
+neighbour table, and the hook: each cell whose label fell lowers the label
+of the cell its old label named) and one pointer jump, until the step's
+flag says that nothing changes. Two label buffers ping-pong with no copy:
+the step reads A and lowers B by ``atomicMin`` (B always holds a field the
+next step's minimum can only lower, ``csrc/min_stencil.cu``), the jump
+reads B and writes A. A
 component's converged label is the minimum flat index of its cells, which
 is unique, so any sound propagation schedule ends at the
 reference's labels bit for bit. The hook takes the place of the reference's
@@ -34,33 +38,37 @@ returned.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from ..exceptions import TrackingError
+from .graph_step import graph_step
 from .min_stencil import BIG, ccl_step, pointer_jump
 
 MAX_ITERS_2D = 4096
+MAX_ITERS_MESH = 4096
 MAX_ITERS_3D = 8192
 # cells per chunk of the int64 bookkeeping (root statistics, dense relabel)
 _CHUNK_CELLS = 64 * 1024 * 1024
 
 
 def _fixpoint(
-    start: List[torch.Tensor], data: torch.Tensor, depth3: bool, wrap_x: bool, max_iters: int, what: str
+    start: List[torch.Tensor],
+    step: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    slice_size: int,
+    max_iters: int,
+    what: str,
 ) -> Tuple[torch.Tensor, int]:
-    """Iterate the fused step and the jump from the labels in the
-    one-element list ``start`` until the step's flag says that they stop
-    changing; returns (labels, iterations). The list is emptied, so the
-    caller holds no reference that would keep the initial field alive
-    through the loop."""
+    """Iterate the fused step ``step(labels, out) -> flag`` and the jump (per
+    ``slice_size`` flat cells) from the labels in the one-element list
+    ``start`` until the step's flag says that they stop changing; returns
+    (labels, iterations). The list is emptied, so the caller holds no
+    reference that would keep the initial field alive through the loop."""
     a = start.pop()
-    T, H, W = a.shape
-    slice_size = T * H * W if depth3 else H * W
     b = torch.full_like(a, BIG)
     for it in range(1, max_iters + 1):
-        if not ccl_step(a, data, b, depth3=depth3, wrap_x=wrap_x).item():
+        if not step(a, b).item():
             return a, it
         pointer_jump(b, slice_size, out=a)
     raise TrackingError(
@@ -87,10 +95,47 @@ def label_slices_grid_roots(data: torch.Tensor, wrap_x: bool = True) -> Tuple[to
     S = H * W
     data = data.contiguous()
     start = [torch.arange(S, dtype=torch.int32, device=data.device).repeat(T).view(T, H, W).masked_fill_(~data, BIG)]
-    lab, iters = _fixpoint(start, data, False, wrap_x, MAX_ITERS_2D, "per-slice CCL")
+    lab, iters = _fixpoint(
+        start, lambda a, b: ccl_step(a, data, b, depth3=False, wrap_x=wrap_x), S, MAX_ITERS_2D, "per-slice CCL"
+    )
     root_flat = lab.view(T, S)
     roots = (root_flat == torch.arange(S, dtype=torch.int32, device=data.device)).view(-1).nonzero().squeeze(1)
     return root_flat, torch.bincount(roots // S, minlength=T), iters
+
+
+def label_slices_unstructured(data: torch.Tensor, neighbours: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """
+    Per-timestep CCL on an unstructured mesh
+    (``marex_tpu.ops.label.label_slices_unstructured``).
+
+    data : (T, C) bool, already masked
+    neighbours : (K, C) int32 0-based adjacency, -1 = missing; components
+        follow the table as given, so the caller passes the symmetrised one
+
+    Returns
+    -------
+    dense : (T, C) int32 per-slice labels 1..n_t in ascending order of each
+        component's minimum cell index, 0 = background
+    counts : (T,) int64 number of components per slice
+    iterations : fixpoint iterations run
+    """
+    T, C = data.shape
+    data = data.contiguous()
+    neighbours = neighbours.contiguous()
+    idx = torch.arange(C, dtype=torch.int32, device=data.device)
+    start = [idx.repeat(T).view(T, C).masked_fill_(~data, BIG)]
+    lab, iters = _fixpoint(start, lambda a, b: graph_step(a, data, neighbours, b), C, MAX_ITERS_MESH, "mesh CCL")
+    # a component's id is the rank of its root (the cell labelled with its own
+    # index) among its slice's roots; in place over the root labels
+    counts = torch.empty(T, dtype=torch.int64, device=data.device)
+    tb = max(1, _CHUNK_CELLS // max(C, 1))
+    for t0 in range(0, T, tb):
+        rows = lab[t0 : t0 + tb]
+        rank = (rows == idx).cumsum(dim=1, dtype=torch.int32)
+        counts[t0 : t0 + tb] = rank[:, -1]
+        active = rows != BIG
+        rows.copy_(torch.gather(rank, 1, torch.where(active, rows, 0).long()).masked_fill_(~active, 0))
+    return lab, counts, iters
 
 
 def slice_root_stats(root_flat: torch.Tensor, n_max: Optional[int] = None):
@@ -162,7 +207,7 @@ def label_spacetime_roots(data: torch.Tensor, wrap_x: bool = True) -> Tuple[torc
     # two label fields live at once (4.5 GB each at production size)
     data = data.contiguous()
     start = [torch.arange(N, dtype=torch.int32, device=data.device).view(T, H, W).masked_fill_(~data, BIG)]
-    lab, iters = _fixpoint(start, data, True, wrap_x, MAX_ITERS_3D, "3-D CCL")
+    lab, iters = _fixpoint(start, lambda a, b: ccl_step(a, data, b, depth3=True, wrap_x=wrap_x), N, MAX_ITERS_3D, "3-D CCL")
     return lab.view(N), iters
 
 
@@ -229,6 +274,36 @@ def densify_slice_roots(
         hit = (rows != BIG) & (kept_keys[pos.clamp_max(kept_keys.numel() - 1)] == key)
         dense[t0 : t0 + tb] = torch.where(hit, pos - start[t_idx] + 1, 0).int()
     return dense, counts
+
+
+def label_cell_counts(labels: torch.Tensor, n_labels: int) -> torch.Tensor:
+    """(T, n_labels + 1) int64 cells per label and slice of (T, S) dense
+    labels in [0, n_labels] (column 0 counts the background). Runs over time
+    chunks of about ``_CHUNK_CELLS`` cells."""
+    T, S = labels.shape
+    nb = n_labels + 1
+    out = torch.empty((T, nb), dtype=torch.int64, device=labels.device)
+    tb = max(1, _CHUNK_CELLS // max(S, 1))
+    for t0 in range(0, T, tb):
+        rows = labels[t0 : t0 + tb]
+        bins = rows + torch.arange(rows.shape[0], device=labels.device)[:, None] * nb
+        out[t0 : t0 + tb] = torch.bincount(bins.view(-1), minlength=rows.shape[0] * nb).view(-1, nb)
+    return out
+
+
+def select_labels(labels: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """``keep[t, labels[t, s]]``: the (T, S) bool field of the cells whose
+    label is kept in its slice (``marex_tpu.ops.label.select_labels``).
+    Runs over time chunks of about ``_CHUNK_CELLS`` cells.
+
+    labels : (T, S) int32 dense labels; keep : (T, n_labels + 1) bool
+    """
+    T, S = labels.shape
+    out = torch.empty((T, S), dtype=torch.bool, device=labels.device)
+    tb = max(1, _CHUNK_CELLS // max(S, 1))
+    for t0 in range(0, T, tb):
+        out[t0 : t0 + tb] = torch.gather(keep[t0 : t0 + tb], 1, labels[t0 : t0 + tb].long())
+    return out
 
 
 def offset_labels(labels: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:

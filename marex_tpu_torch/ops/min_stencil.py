@@ -33,7 +33,7 @@ def _check_labels(lab: torch.Tensor, ndim: Optional[int] = 3) -> None:
     if not isinstance(lab, torch.Tensor) or lab.dtype != torch.int32:
         raise TypeError(f"labels must be an int32 tensor, got {getattr(lab, 'dtype', type(lab))}")
     if ndim is not None and lab.dim() != ndim:
-        raise ValueError(f"labels must be {ndim}-D (T, H, W), got shape {tuple(lab.shape)}")
+        raise ValueError(f"labels must be {ndim}-D, got shape {tuple(lab.shape)}")
     if not lab.is_contiguous():
         raise ValueError("labels must be contiguous")
     if lab.device.type not in ("cpu", "cuda"):

@@ -1,9 +1,11 @@
 """
-Binary morphology on gridded (T, H, W) bool fields.
+Binary morphology on gridded (T, H, W) and unstructured (T, C) bool fields.
 
-The port of the grid half of ``marex_tpu/ops/morphology.py``: disk
-closing+opening with the reference's 2R wrap pad and ``border_value=0``
-erosion, and the temporal closing along time. Dilation is written as
+The port of ``marex_tpu/ops/morphology.py``: disk closing+opening with the
+reference's 2R pad (wrapped for a global grid, edge values repeated for a
+regional one) and ``border_value=0`` erosion, the temporal closing along
+time, and on a mesh the closing+opening by graph distance over the (3, C)
+neighbour table (a gather and an OR a table row). Dilation is written as
 shifted OR passes on bool tensors (the disk as a union of row runs), erosion
 as its complement dual, exactly as the JAX code does, so the results are bit
 for bit the reference's. A ``conv2d`` disk would be shorter, but cuDNN runs
@@ -80,30 +82,34 @@ def _erode_disk(x: torch.Tensor, radius: int, outside: bool = True) -> torch.Ten
     return ~_dilate_disk(~x, radius, fill=not outside)
 
 
-def _pad_wrap(x: torch.Tensor, d: int) -> torch.Tensor:
-    """Periodic pad of the two trailing dims by ``d`` (numpy ``mode='wrap'``)."""
+def _pad(x: torch.Tensor, d: int, mode: str) -> torch.Tensor:
+    """Pad the two trailing dims by ``d``: periodic (numpy ``mode='wrap'``)
+    or with the edge values repeated (``mode='edge'``)."""
     for dim in (-2, -1):
         n = x.shape[dim]
-        idx = torch.arange(-d, n + d, device=x.device) % n
-        x = x.index_select(dim, idx)
+        idx = torch.arange(-d, n + d, device=x.device)
+        x = x.index_select(dim, idx % n if mode == "wrap" else idx.clamp(0, n - 1))
     return x
 
 
-def binary_close_open_grid(data: torch.Tensor, radius: int, mask: torch.Tensor) -> torch.Tensor:
+def binary_close_open_grid(data: torch.Tensor, radius: int, mask: torch.Tensor, mode: str = "wrap") -> torch.Tensor:
     """
     Fill holes and gaps: closing (dilate, erode) then opening (erode,
-    dilate) with a disk of ``radius``, on a field padded by 2R with wrap in
-    both spatial dims and eroded with ``border_value=0``; then trim and
-    re-apply the land mask — the reference's geometry, quirks included.
+    dilate) with a disk of ``radius``, on a field padded by 2R in both
+    spatial dims (``mode='wrap'`` for a global grid, ``'edge'`` for a
+    regional one) and eroded with ``border_value=0``; then trim and re-apply
+    the land mask — the reference's geometry, quirks included.
 
     data : (T, H, W) bool; mask : (H, W) bool (True = valid ocean)
     """
+    if mode not in ("wrap", "edge"):
+        raise ValueError(f"mode must be 'wrap' or 'edge', got {mode!r}")
     if radius == 0:
         return data & mask
     d = 2 * radius
     out = torch.empty_like(data)
     for t0 in range(0, data.shape[0], _TIME_CHUNK):
-        x = _pad_wrap(data[t0 : t0 + _TIME_CHUNK], d)
+        x = _pad(data[t0 : t0 + _TIME_CHUNK], d, mode)
         x = _dilate_disk(x, radius)  # closing
         x = _erode_disk(x, radius, outside=False)
         x = _erode_disk(x, radius, outside=False)  # opening
@@ -148,3 +154,49 @@ def binary_close_time(data: torch.Tensor, t_fill: int) -> torch.Tensor:
     x = _pool_time(x, lo, hi, False, "or")
     x = _pool_time(x, lo, hi, True, "and")
     return x[k:-k]
+
+
+def neighbour_dilate_step(vec: torch.Tensor, neighbours: torch.Tensor) -> torch.Tensor:
+    """
+    One graph-dilation step on an unstructured mesh: a cell becomes True if
+    it is True or any of its neighbours is. ``neighbours`` is the (K, C)
+    0-based adjacency with -1 for missing, used as given (a directed table
+    dilates along its own edges only).
+
+    vec : (..., C) bool
+    """
+    out = vec.clone()
+    for row in neighbours:
+        out.logical_or_(vec.index_select(-1, row.clamp_min(0).long()).logical_and_(row >= 0))
+    return out
+
+
+def neighbour_dilate(vec: torch.Tensor, neighbours: torch.Tensor, steps: int) -> torch.Tensor:
+    """Iterated graph dilation: every cell within ``steps`` hops of a True cell."""
+    for _ in range(steps):
+        vec = neighbour_dilate_step(vec, neighbours)
+    return vec
+
+
+def binary_close_open_unstructured(
+    data: torch.Tensor, neighbours: torch.Tensor, mask: torch.Tensor, radius: int
+) -> torch.Tensor:
+    """
+    Closing then opening by graph distance ``radius`` on the mesh, with land
+    set True before each erosion so that the shoreline is not eroded: dilate,
+    OR land, erode, OR land, erode, dilate — the reference's order. Like the
+    reference, land cells may come out True (labelling applies the mask
+    again). Runs a block of time slices at a time.
+
+    data : (T, C) bool; neighbours : (K, C) int32; mask : (C,) bool
+    """
+    if radius == 0:
+        return data
+    land = ~mask
+    out = torch.empty_like(data)
+    for t0 in range(0, data.shape[0], _TIME_CHUNK):
+        x = neighbour_dilate(data[t0 : t0 + _TIME_CHUNK], neighbours, radius)
+        for _ in range(2):  # two erosions, each after protecting the shore
+            x = ~neighbour_dilate(~(x | land), neighbours, radius)
+        out[t0 : t0 + _TIME_CHUNK] = neighbour_dilate(x, neighbours, radius)
+    return out

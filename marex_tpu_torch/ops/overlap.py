@@ -1,10 +1,12 @@
 """
 The temporal overlap graph of merge tracking.
 
-The port of the gridded parts of ``marex_tpu/ops/overlap.py`` and of the
-tracker's pair helpers (``consecutive_pairs_tiled``, ``compact_pairs``,
-``_pairs_dev``): for consecutive time slices, every (id at t, id at t+1)
-pair of objects that share cells, with the number of shared cells. Pair keys
+The port of ``marex_tpu/ops/overlap.py`` and of the tracker's pair helpers
+(``consecutive_pairs_tiled``, ``compact_pairs``, ``_pairs_dev``): for
+consecutive time slices, every (id at t, id at t+1) pair of objects that
+share cells, with the number of shared cells or, on a mesh, the summed area
+of the shared cells (a float64 sum of float32 cell areas, rounded to float32:
+the reference's float32 sum, without its dependence on the order). Pair keys
 are int64 ``(t * K + a) * K + b`` on the device, sorted and counted by
 ``torch.unique``, so the lists come out in ascending (t, a, b) order, as the
 reference's ascending keys do, and the reference's fall-back to host numpy
@@ -13,7 +15,7 @@ when ``key_stride**2 >= 2**31`` has no counterpart here.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,16 +27,17 @@ _CHUNK_CELLS = 64 * 1024 * 1024
 
 
 def consecutive_pairs(
-    labels: torch.Tensor, key_stride: int
+    labels: torch.Tensor, key_stride: int, weights: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """
     Overlap triples between every consecutive slice pair of a label stack.
 
     labels : (T, ...) int32 object ids (0 = background), all < key_stride
+    weights : optional (S,) per-cell weights (cell areas on a mesh)
 
-    Returns (t, a, b, w) int64 tensors on the labels' device, sorted by
-    (t, a, b): object ``a`` at slice t shares ``w`` cells with object ``b``
-    at slice t + 1.
+    Returns (t, a, b, w) tensors on the labels' device, sorted by (t, a, b):
+    object ``a`` at slice t shares ``w`` cells with object ``b`` at slice
+    t + 1 (int64), or cells of summed weight ``w`` (float32) with ``weights``.
     """
     T = labels.shape[0]
     S = labels[0].numel() if T else 0
@@ -48,24 +51,32 @@ def consecutive_pairs(
         n = min(tb, T - 1 - t0)
         a, b = flat[t0 : t0 + n], flat[t0 + 1 : t0 + 1 + n]
         t_idx = torch.arange(t0, t0 + n, device=labels.device)[:, None]
-        key = ((t_idx * K + a) * K + b)[(a > 0) & (b > 0)]
-        k, c = torch.unique(key, sorted=True, return_counts=True)
+        both = (a > 0) & (b > 0)
+        key = ((t_idx * K + a) * K + b)[both]
+        if weights is None:
+            k, c = torch.unique(key, sorted=True, return_counts=True)
+        else:
+            k, inv = torch.unique(key, sorted=True, return_inverse=True)
+            w = weights.to(torch.float64).expand(n, S)[both]
+            c = torch.zeros(k.numel(), dtype=torch.float64, device=labels.device).index_add_(0, inv, w).float()
         # on CUDA both outputs are views into buffers as long as ``key``:
         # copies let those go (they held 14.3 GiB at full size)
         keys.append(k.clone())
         counts.append(c.clone())
     if not keys:
         z = torch.zeros(0, dtype=torch.int64, device=labels.device)
-        return z, z, z, z
+        return z, z, z, z if weights is None else z.float()
     key, w = torch.cat(keys), torch.cat(counts)
     ab = key % (K * K)
     return key // (K * K), ab // K, ab % K, w
 
 
-def slice_pairs(a: torch.Tensor, b: torch.Tensor, key_stride: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def slice_pairs(
+    a: torch.Tensor, b: torch.Tensor, key_stride: int, weights: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(a, b, w) overlap triples between two label slices, sorted by (a, b)
     (the march's refresh of one slice pair)."""
-    _, pa, pb, pw = consecutive_pairs(torch.stack([a, b]), key_stride)
+    _, pa, pb, pw = consecutive_pairs(torch.stack([a, b]), key_stride, weights)
     return pa, pb, pw
 
 

@@ -1,7 +1,8 @@
 """
-Child partitioning of split/merge tracking on a regular grid.
+Child partitioning of split/merge tracking, on a regular grid and on an
+unstructured mesh.
 
-The port of the gridded parts of ``marex_tpu/ops/partition.py``: a child
+The port of ``marex_tpu/ops/partition.py``. On a grid, a child
 object that overlaps several parents is cut into one piece per parent, each
 cell going to the parent whose nearest cell is closest (an exact Euclidean
 distance transform, capped at a maximum distance) or, beyond the cap or in
@@ -14,15 +15,27 @@ as infinitely far.
 Squared distances are integers below 2**24, so every exact method gives the
 reference's float32 values; ties in an argmin go to the lowest parent index,
 as in ``jnp.argmin``.
+
+On a mesh the nearest parent cell is found by hop distance (a breadth-first
+search over the neighbour table from each parent's overlap with the child,
+capped at a number of hops), and the fallback is the great-circle distance
+to the parents' centroids. Hop counts are integers, so they are the
+reference's. The great-circle order is taken from the haversine term
+``(1 - u.v) / 2`` of the cells' and centroids' unit vectors, in float64
+products and sums of numbers made on the host: the CPU and CUDA give the same
+bits, and a cell goes to another parent than in the reference (float32
+trigonometry) only where two centroids are equally far within float32
+rounding.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from .properties import grid_mask_props
+from .properties import grid_mask_props, mesh_segment_sums, mesh_unit_vectors, spherical_centroids, unstructured_mask_props
 
 _INF = float("inf")
 # bytes for the column pass's (masks, rows, H, W) float32 temporary
@@ -232,3 +245,164 @@ def relabel_and_props_slice(
     out = relabel_values_slice(labels, olds, news)
     masks = (out[None] == targets[:, None, None]) & (targets > 0)[:, None, None]
     return out, grid_mask_props(masks, wrap)
+
+
+def hop_distance_unstructured(
+    seed_masks: torch.Tensor, neighbours: torch.Tensor, max_distance: int, targets: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """
+    Multi-source hop distance from each seed region by iterated graph
+    dilation over the table as given (a breadth-first search).
+
+    seed_masks : (..., C) bool; neighbours : (K, C) int32, -1 = missing
+    targets : optional (..., C) bool broadcastable against the leading dims
+        but the last (the parent axis): the search also stops once every
+        target cell has been reached from some seed region of its group, as
+        later arrivals are farther. Distances of first arrivals are exact.
+
+    Returns (..., C) float32 hop counts, inf where unreached within
+    ``max_distance`` (or when the search stopped first).
+    """
+    visited = seed_masks.clone()
+    dist = torch.where(seed_masks, 0.0, _INF).to(torch.float32)
+    rows = [(row.clamp_min(0).long(), row >= 0) for row in neighbours]
+    for d in range(1, int(max_distance) + 1):
+        grown = visited.clone()
+        for idx, valid in rows:
+            grown.logical_or_(visited.index_select(-1, idx).logical_and_(valid))
+        newly = grown & ~visited
+        dist.masked_fill_(newly, float(d))
+        visited = grown
+        done = ~newly.any()
+        if targets is not None:
+            done = done | (visited.any(dim=-2) | ~targets).all()
+        if bool(done):
+            break
+    return dist
+
+
+def _centroid_unit_vectors(parent_centroids: torch.Tensor) -> torch.Tensor:
+    """(..., P, 3) float64 unit vectors of (lat, lon) centroids in degrees,
+    made on the host (a few values) and placed on the centroids' device."""
+    cents = parent_centroids.detach().cpu().numpy()
+    unit = mesh_unit_vectors(cents[..., 0], cents[..., 1])  # (3, ..., P)
+    return torch.from_numpy(np.moveaxis(unit, 0, -1).copy()).to(parent_centroids.device)
+
+
+def _haversine_term(cell_unit: torch.Tensor, parent_unit: torch.Tensor) -> torch.Tensor:
+    """The haversine term ``a = (1 - u.v) / 2`` in [0, 1], float64, of cells'
+    unit vectors (n, 3) against parents' (n, P, 3) or (P, 3): separate
+    products and sums, so every device rounds alike. The great-circle
+    distance ``2 atan2(sqrt(a), sqrt(1 - a))`` increases with it."""
+    dot = cell_unit[..., None, 0] * parent_unit[..., 0]
+    dot = dot + cell_unit[..., None, 1] * parent_unit[..., 1]
+    dot = dot + cell_unit[..., None, 2] * parent_unit[..., 2]
+    return ((1.0 - dot) * 0.5).clamp_(0.0, 1.0)
+
+
+def haversine_to_centroids(cell_unit: torch.Tensor, parent_centroids: torch.Tensor) -> torch.Tensor:
+    """
+    Great-circle angular distance from every cell to each parent centroid.
+
+    cell_unit : (3, C) float64 unit vectors (``properties.mesh_unit_vectors``)
+    parent_centroids : (P, 2) degrees (lat, lon)
+    Returns (P, C) float32 radians.
+    """
+    a = _haversine_term(cell_unit.t(), _centroid_unit_vectors(parent_centroids)).t()
+    return (2.0 * torch.atan2(torch.sqrt(a), torch.sqrt(1.0 - a))).float()
+
+
+def partition_centroid_unstructured(
+    parent_centroids: torch.Tensor, parent_valid: torch.Tensor, cell_unit: torch.Tensor
+) -> torch.Tensor:
+    """Index of the closest valid parent centroid on the sphere for every
+    cell; (C,) int64, the lowest index on ties."""
+    a = _haversine_term(cell_unit.t(), _centroid_unit_vectors(parent_centroids))  # (C, P)
+    return torch.where(parent_valid[None, :], a, _INF).argmin(dim=1)
+
+
+def partition_nn_unstructured(
+    child_mask: torch.Tensor,
+    parent_masks: torch.Tensor,
+    parent_valid: torch.Tensor,
+    parent_centroids: torch.Tensor,
+    neighbours: torch.Tensor,
+    cell_unit: torch.Tensor,
+    max_distance: int,
+) -> torch.Tensor:
+    """
+    Nearest-parent partitioning on the mesh: hop distance from each parent's
+    overlap with the child, the closest parent centroid for cells that no
+    parent reaches within ``max_distance`` hops.
+
+    child_mask : (C,) bool; parent_masks : (P, C) bool; parent_valid : (P,)
+    Returns (C,) int64 parent index for every cell.
+    """
+    seeds = parent_masks & child_mask[None, :] & parent_valid[:, None]
+    dist = hop_distance_unstructured(seeds, neighbours, max_distance)
+    dist = torch.where(parent_valid[:, None], dist, _INF)
+    dmin, assign = dist.min(dim=0)
+    fallback = partition_centroid_unstructured(parent_centroids, parent_valid, cell_unit)
+    return torch.where(torch.isfinite(dmin), assign, fallback)
+
+
+def partition_children_unstructured_batched(
+    prev_labels: torch.Tensor,
+    cur_labels: torch.Tensor,
+    child_ids: torch.Tensor,
+    piece_ids: torch.Tensor,
+    parent_ids: torch.Tensor,
+    parent_valid: torch.Tensor,
+    parent_cents: torch.Tensor,
+    caps: torch.Tensor,
+    neighbours: torch.Tensor,
+    cell_unit: torch.Tensor,
+    wall: torch.Tensor,
+    nn: bool,
+    hop_cap: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """
+    Partition all merging children of one march iteration on the mesh, and
+    give every piece's spherical properties. The search runs for the batch
+    (to ``hop_cap`` hops, or until every child cell is reached); each child's
+    own cap is enforced by masking ``dist <= cap``. After the search only the
+    children's cells are touched.
+
+    prev_labels, cur_labels : (C,) int32 label slices at t-1 / t
+    child_ids : (K,) int32 (0 = inactive slot); piece_ids, parent_ids : (K, P)
+    parent_valid : (K, P) bool; parent_cents : (K, P, 2) degrees (lat, lon)
+    caps : (K,) float32 nearest-cell search cap per child, in hops
+    neighbours : (3, C) int32 as given; cell_unit, wall : the mesh's unit
+        vectors (3, C) and weights (4, C), float64
+
+    Returns the updated (C,) int32 slice and (K, P, 3) float32 (area, clat,
+    clon) of every piece.
+    """
+    K, P = parent_ids.shape
+    child_mask = (cur_labels[None] == child_ids[:, None]) & (child_ids > 0)[:, None]
+    k_idx, c_idx = child_mask.nonzero(as_tuple=True)  # the children's cells
+    valid = parent_valid[k_idx]  # (n, P)
+    a = _haversine_term(cell_unit[:, c_idx].t(), _centroid_unit_vectors(parent_cents)[k_idx])
+    assign = torch.where(valid, a, _INF).argmin(dim=1)
+    if nn:
+        seeds = (prev_labels[None, None] == parent_ids[..., None]) & parent_valid[..., None] & child_mask[:, None]
+        dist = hop_distance_unstructured(seeds, neighbours, hop_cap, targets=child_mask)[k_idx, :, c_idx]  # (n, P)
+        del seeds
+        dist = torch.where((dist <= caps[k_idx, None]) & valid, dist, _INF)
+        dmin, nearest = dist.min(dim=1)
+        assign = torch.where(torch.isfinite(dmin), nearest, assign)
+    out = cur_labels.clone()
+    out[c_idx] = piece_ids[k_idx, assign]
+    sums = mesh_segment_sums(k_idx * P + assign, c_idx, wall, K * P)
+    return out, torch.stack(spherical_centroids(sums), dim=-1).view(K, P, 3)
+
+
+def relabel_and_props_unstructured(
+    labels: torch.Tensor, olds: Sequence[int], news: Sequence[int], targets: torch.Tensor, wall: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Consolidation renames on a mesh slice, then the (area, clat, clon) of
+    each target id in the renamed slice (targets of 0 are padding and give
+    zeros). Returns ((C,) int32, (M, 3) float32)."""
+    out = relabel_values_slice(labels, olds, news)
+    masks = (out[None] == targets[:, None]) & (targets > 0)[:, None]
+    return out, unstructured_mask_props(masks, wall)

@@ -173,12 +173,13 @@ def hobday_program(
     nbins: int,
     window_days: int,
     window_spatial: Optional[int],
-    grid_shape: Tuple[int, int],
+    grid_shape: Optional[Tuple[int, int]],
     wrap_lon: bool,
     exact: bool,
 ):
     """
-    Day-of-year thresholds and the comparison. ``anomalies`` is (T, S).
+    Day-of-year thresholds and the comparison. ``anomalies`` is (T, S);
+    ``grid_shape`` is None on a mesh, which has no spatial window.
     Returns ``(extremes (T, S) bool, thresholds (366, S) float32, pre_min,
     pre_max)``. The approximate path NaNs land (non-finite at the first
     step) and clamps at ``lower_bound``; ``pre_min``/``pre_max`` are the

@@ -1,8 +1,8 @@
 """
-Per-object properties on a regular grid: areas, centroids and the (time, ID)
-table of original object ids.
+Per-object properties on a regular grid and on an unstructured mesh: areas,
+centroids and the (time, ID) table of original object ids.
 
-The port of ``marex_tpu/ops/properties.py`` (gridded entry points). The six
+The port of ``marex_tpu/ops/properties.py``. On a grid, the six
 sums behind the periodic centroid (area, sum y, sum x, the count right of
 W/2 and the two edge flags) are accumulated as int64 pixel counts, or in
 float64 with cell weights, and then cast to float32 and divided exactly as
@@ -11,6 +11,16 @@ so CUDA equals the CPU; while a float32 sum stays below 2**24 the reference's
 float32 sums are exact too, and the results are bit-identical. Above that
 (large objects at 0.25 degree) the reference's float32 ``sum_x`` loses
 digits and these sums do not.
+
+On a mesh, the area-weighted spherical centroid needs four sums per object:
+the cell areas and the areas times the cells' unit vectors. The per-cell
+weights are made once on the host, in float64 from the float32 coordinates
+(:func:`mesh_weights`), so the CPU and CUDA sum the same numbers; the sums
+are float64 (exact for equal cell areas, and within 1e-15 of each other in
+any order otherwise) and everything after them is float64 rounded once to
+float32. The reference sums and divides in float32, in an order of XLA's
+choosing: its areas are exact only while a sum fits 24 bits, and its
+centroids agree with these to about 1e-4 degrees.
 """
 
 from __future__ import annotations
@@ -156,3 +166,98 @@ def interp_coord(pix: torch.Tensor, coord_values: torch.Tensor) -> torch.Tensor:
     f = torch.where(dx0, fp[i - 1], (fp[i - 1].double() + q.double() * df.double()).float())
     f = torch.where(x < xp[0], fp[0], f)
     return torch.where(x > xp[-1], fp[-1], f)
+
+
+def mesh_unit_vectors(lat_deg: np.ndarray, lon_deg: np.ndarray) -> np.ndarray:
+    """(3, C) float64 unit vectors (x, y, z) of the cells, from coordinates in
+    degrees rounded to float32 first (the reference's input precision)."""
+    lat = np.deg2rad(np.asarray(lat_deg, dtype=np.float32).astype(np.float64))
+    lon = np.deg2rad(np.asarray(lon_deg, dtype=np.float32).astype(np.float64))
+    return np.stack([np.cos(lat) * np.cos(lon), np.cos(lat) * np.sin(lon), np.sin(lat)])
+
+
+def mesh_weights(lat_deg: np.ndarray, lon_deg: np.ndarray, cell_area: np.ndarray, device) -> torch.Tensor:
+    """(4, C) float64 per-cell weights on ``device``: the float32 cell area
+    ``a``, then ``a`` times the cell's unit vector — the addends of the
+    spherical-centroid sums, made on the host so every device sums the same
+    numbers."""
+    a = np.asarray(cell_area, dtype=np.float32).astype(np.float64)
+    return torch.from_numpy(np.concatenate([a[None], a[None] * mesh_unit_vectors(lat_deg, lon_deg)])).to(device)
+
+
+def mesh_segment_sums(bins: torch.Tensor, cells: torch.Tensor, wall: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """(n_bins, 4) float64: for each bin, the sums of ``wall`` over the cells
+    listed for it (``bins`` and ``cells`` are parallel int64 lists)."""
+    return torch.stack([torch.bincount(bins, weights=w[cells], minlength=n_bins) for w in wall], dim=1)
+
+
+def spherical_centroids(sums: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(area, clat, clon) float32 from (..., 4) float64 sums ``[a, a x, a y,
+    a z]``: the mean vector renormalised and turned back into degrees, lat in
+    [-90, 90], lon folded into [-180, 180]; (0, 0) where the vector is zero."""
+    wx, wy, wz = sums[..., 1], sums[..., 2], sums[..., 3]
+    norm = torch.sqrt(wx * wx + wy * wy + wz * wz)
+    norm = torch.where(norm > 0, norm, 1.0)
+    clat = torch.rad2deg(torch.asin(torch.clamp(wz / norm, -1.0, 1.0)))
+    clon = torch.rad2deg(torch.atan2(wy / norm, wx / norm))
+    clon = torch.where(clon > 180.0, clon - 360.0, torch.where(clon < -180.0, clon + 360.0, clon))
+    return sums[..., 0].float(), clat.float(), clon.float()
+
+
+def _label_sums_mesh(labels: torch.Tensor, wall: torch.Tensor, n_labels: int) -> torch.Tensor:
+    """(T, n_labels + 1, 4) float64 sums of ``wall`` by label; only the
+    labelled cells are touched (column 0, the background, stays 0). Runs over
+    time chunks of about ``_CHUNK_CELLS`` cells."""
+    T, C = labels.shape
+    nb = n_labels + 1
+    out = torch.zeros((T, nb, 4), dtype=torch.float64, device=labels.device)
+    tb = max(1, _CHUNK_CELLS // max(C, 1))
+    for t0 in range(0, T, tb):
+        rows = labels[t0 : t0 + tb]
+        n = rows.shape[0]
+        pos = rows.reshape(-1).nonzero().squeeze(1)
+        bins = torch.div(pos, C, rounding_mode="floor") * nb + rows.reshape(-1)[pos]
+        out[t0 : t0 + n] = mesh_segment_sums(bins, pos % C, wall, n * nb).view(n, nb, 4)
+    return out
+
+
+def unstructured_label_comps(labels: torch.Tensor, wall: torch.Tensor, n_labels: int) -> torch.Tensor:
+    """
+    The additive property components per label on a mesh
+    (``marex_tpu`` ``unstructured_label_comps``): ``[area, sum a x, sum a y,
+    sum a z]``.
+
+    labels : (T, C) int32 dense in [0, n_labels]; wall : :func:`mesh_weights`
+    Returns (T, n_labels + 1, 4) float32 (the background row is 0).
+    """
+    return _label_sums_mesh(labels, wall, n_labels).float()
+
+
+def unstructured_label_props(
+    labels: torch.Tensor, wall: torch.Tensor, n_labels: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """
+    Areas and area-weighted spherical centroids per label on a mesh.
+
+    labels : (T, C) int32 dense in [0, n_labels]; wall : :func:`mesh_weights`
+    Returns areas, clat, clon: (T, n_labels + 1) float32, centroids in
+    degrees and NaN where the label is absent; column 0 is the background.
+    """
+    areas, clat, clon = spherical_centroids(_label_sums_mesh(labels, wall, n_labels))
+    present = areas > 0
+    nan = torch.tensor(float("nan"), device=labels.device)
+    return areas, torch.where(present, clat, nan), torch.where(present, clon, nan)
+
+
+def unstructured_mask_props(masks: torch.Tensor, wall: torch.Tensor) -> torch.Tensor:
+    """
+    (area, clat, clon) of each boolean (C,) mask of a batch (``marex_tpu``
+    ``unstructured_mask_props``, vmapped over masks). An empty mask gives
+    (0, 0, 0).
+
+    masks : (..., C) bool -> (..., 3) float32
+    """
+    lead, C = masks.shape[:-1], masks.shape[-1]
+    m, c = masks.reshape(-1, C).nonzero(as_tuple=True)
+    sums = mesh_segment_sums(m, c, wall, int(np.prod(lead, dtype=np.int64)))
+    return torch.stack(spherical_centroids(sums), dim=-1).view(*lead, 3)

@@ -277,7 +277,8 @@ def hobday_tiles(
     lon seam when ``wrap_lon`` (else the sentinel), sentinel rows beyond the
     poles (zero counts: the truncated window at the edges). The tiles are
     full-width row bands when one halo'd row fits ``tile_bytes`` of
-    histogram, else squares.
+    histogram, else squares (wider where the grid has fewer rows than a
+    square's side).
     """
     Y, D, _ = bins_ymd.shape
     ny, nx = grid_shape
@@ -286,7 +287,9 @@ def hobday_tiles(
         tc, tr = nx, min(ny, max(1, budget // (nx + 2 * halo) - 2 * halo))
     else:
         side = max(1, math.isqrt(budget) - 2 * halo)
-        tr, tc = min(ny, side), min(nx, side)
+        tr = min(ny, side)
+        # a grid with fewer rows than a square's side (a mesh is one row) gets wider tiles
+        tc = min(nx, side if tr == side else max(side, budget // (tr + 2 * halo) - 2 * halo))
     nty, ntx = -(-ny // tr), -(-nx // tc)
 
     b = bins_ymd.view(Y, D, ny, nx)

@@ -1,16 +1,19 @@
 """
 MarEx track on PyTorch: event identification and tracking.
 
-The port of ``marex_tpu/track.py`` for gridded, global (periodic in
-longitude) tracking: morphological hole and gap filling, the area filter
-over per-slice connected components (with the reference's
-drop-first-object quirk), then either 3x3x3 spatio-temporal event labelling
-(``allow_merging=False``) or the split/merge march (``allow_merging=True``,
-the default): per-slice objects linked through their overlaps, merging
-children partitioned among their parents, and the objects clustered into
-events with per-event area, centroid, presence and merge ledger. The
-labellings run on the hand-written CUDA kernels (the min-stencil fused
-with the hook, and the pointer jump) when the field lies on a GPU.
+The port of ``marex_tpu/track.py``: morphological hole and gap filling,
+the area filter over per-slice connected components, then either 3x3x3
+spatio-temporal event labelling (``allow_merging=False`` on a grid) or the
+split/merge march (``allow_merging=True``, the default, and always on a
+mesh): per-slice objects linked through their overlaps, merging children
+partitioned among their parents, and the objects clustered into events with
+per-event area, centroid, presence and merge ledger. Grids are global
+(periodic in longitude) or, with ``regional_mode=True``, open at every
+boundary; ``unstructured_grid=True`` tracks (time, cell) data on a
+triangular mesh given by its neighbour table and cell areas. The labellings
+run on the hand-written CUDA kernels (the min-stencil or the mesh's
+neighbour min, fused with the hook, and the pointer jump) when the field
+lies on a GPU.
 
 The march follows the reference's per-step form
 (``tracker._split_and_merge_device``): its bookkeeping (thresholds,
@@ -18,10 +21,9 @@ consolidation chains, new ids, the ledger) is host Python on small tables,
 and every full-field or per-slice array operation runs on the tracker's
 device.
 
-``unstructured_grid=True``, ``regional_mode=True``, ``mesh`` and
-``checkpoint`` raise ``NotImplementedError`` naming the ROADMAP item that
-brings them. Device placement is explicit: a torch tensor input keeps its
-device; numpy or ``Field`` payloads move to ``device``.
+``mesh`` and ``checkpoint`` raise ``NotImplementedError`` naming the
+ROADMAP item that brings them. Device placement is explicit: a torch tensor
+input keeps its device; numpy or ``Field`` payloads move to ``device``.
 """
 
 from __future__ import annotations
@@ -49,8 +51,6 @@ logger = get_logger(__name__)
 MAX_PARENTS = 10  # parent capacity per merge event
 
 _NOT_PORTED = {
-    "unstructured_grid": "ROADMAP queue 1, item 9 (unstructured meshes)",
-    "regional_mode": "ROADMAP queue 1, item 8 (regional mode)",
     "mesh": "ROADMAP queue 1, item 11 (multi-GPU)",
     "checkpoint": "ROADMAP queue 1, item 3 (tracker checkpoints, with io/zarr_lite from item 10)",
 }
@@ -58,6 +58,11 @@ _NOT_PORTED = {
 
 def _is_bool(data: Any) -> bool:
     return data.dtype == torch.bool if isinstance(data, torch.Tensor) else np.dtype(data.dtype) == np.bool_
+
+
+def _dtype_name(field: Field) -> str:
+    """A payload's dtype as numpy names it (``float32``), tensor or array."""
+    return str(field.dtype).removeprefix("torch.")
 
 
 class _SliceStore:
@@ -116,8 +121,8 @@ class ObjectTable:
 class tracker:
     """
     Identify and track binary objects through time (API-compatible with
-    ``marex_tpu.tracker``; gridded, global tracking with and without merging
-    is ported).
+    ``marex_tpu.tracker``): gridded global or regional data, or (time, cell)
+    data on an unstructured mesh, with and without merging.
 
     ``data_bin`` / ``mask`` may be Fields (of this package or duck-typed
     equivalents) with numpy or torch payloads; ``device`` places payloads
@@ -154,8 +159,6 @@ class tracker:
         device: Union[str, torch.device] = "cuda",
     ) -> None:
         for name, value in (
-            ("unstructured_grid", unstructured_grid),
-            ("regional_mode", regional_mode),
             ("mesh", mesh is not None),
             ("checkpoint", bool(checkpoint)),
         ):
@@ -184,8 +187,8 @@ class tracker:
         self.mask = as_field(mask)
         log_array_info(logger, self.data_bin, "Binary input data")
 
-        self.regional_mode = False
-        self.unstructured_grid = False
+        self.regional_mode = bool(regional_mode)
+        self.unstructured_grid = bool(unstructured_grid)
         self.allow_merging = allow_merging
         self.nn_partitioning = nn_partitioning
         self.coordinate_units = coordinate_units
@@ -194,10 +197,11 @@ class tracker:
         coordinates = coordinates or {}
         self.timedim = dimensions.get("time", "time")
         self.xdim = dimensions.get("x", "lon")
-        self.ydim = dimensions.get("y", "lat")
+        self.ydim: Optional[str] = dimensions.get("y", "lat")
         self.timecoord = coordinates.get("time", self.timedim)
-        self.xcoord = coordinates.get("x", self.xdim)
-        self.ycoord = coordinates.get("y", self.ydim)
+        # on a mesh the coordinates default to lon and lat, not to the dim names
+        self.xcoord = coordinates.get("x", "lon" if unstructured_grid else self.xdim)
+        self.ycoord = coordinates.get("y", "lat" if unstructured_grid else self.ydim)
 
         if self.xcoord not in self.data_bin.coords or self.ycoord not in self.data_bin.coords:
             raise create_data_validation_error(
@@ -233,7 +237,7 @@ class tracker:
         self.lon = np.asarray(self.data_bin.coords[self.xcoord].values, dtype=np.float64)
         self.data_attrs = dict(self.data_bin.attrs)
 
-        self._validate_inputs(grid_resolution)
+        self._validate_inputs(neighbours, cell_areas, grid_resolution)
 
         # payloads on their device: the binary field, and the mask beside it
         self.data_bin = self.data_bin._replace(data=on_device(self.data_bin.data, device).contiguous())
@@ -252,6 +256,10 @@ class tracker:
         self._label_reuse = None
 
         # ---- cell areas -------------------------------------------------
+        if unstructured_grid:
+            self._setup_mesh(neighbours, cell_areas)
+            return
+        self.neighbours_int = self.neighbours_sym = None
         ny, nx = len(self.lat), len(self.lon)
         if grid_resolution is not None:
             logger.info(f"Calculating cell areas from grid resolution: {grid_resolution} degrees")
@@ -276,6 +284,52 @@ class tracker:
                 )
             self.cell_area = np.asarray(ca.transpose(self.ydim, self.xdim).values, dtype=np.float32)
         self.mean_cell_area = float(np.mean(self.cell_area))
+
+    def _setup_mesh(self, neighbours: Any, cell_areas: Any) -> None:
+        """The mesh's cell areas and neighbour tables: the (3, C) table as
+        given, 0-based with -1 for missing, which morphology and the
+        partition's search follow, and its symmetrised (K', C) form, which
+        labelling follows (mesh files carry asymmetric entries, and the
+        reference labels the undirected graph)."""
+        ca = as_field(cell_areas, dims=(self.xdim,), name="cell_areas")
+        self.cell_area = np.asarray(ca.values, dtype=np.float32)
+        self.mean_cell_area = float(np.mean(self.cell_area))
+        nb = as_field(neighbours, dims=("nv", self.xdim), name="neighbours")
+        nb_vals = np.asarray(nb.values, dtype=np.int32)
+        if nb_vals.shape[0] != 3:
+            raise create_data_validation_error(
+                "Invalid neighbour array for triangular grid",
+                details=f"Expected shape (3, ncells), got {nb_vals.shape}",
+                suggestions=[
+                    "Ensure triangular grid connectivity",
+                    "Check neighbour array from grid file",
+                    "Verify unstructured grid format",
+                ],
+                data_info={"actual_shape": nb_vals.shape, "expected_shape": "(3, ncells)"},
+            )
+        if tuple(nb.dims) != ("nv", self.xdim):
+            raise create_data_validation_error(
+                "Invalid neighbour array dimensions",
+                details=f"Expected dimensions ('nv', '{self.xdim}'), got {nb.dims}",
+                suggestions=["Check dimension names in grid file", "Verify coordinate mapping"],
+                data_info={"actual_dims": nb.dims, "expected_dims": ("nv", self.xdim)},
+            )
+        self.neighbours_int = nb_vals - 1
+        self.neighbours_sym = _symmetrize_neighbours(self.neighbours_int)
+        dev = self.device
+        self._nb_dev = torch.from_numpy(self.neighbours_int).to(dev)
+        self._nb_sym_dev = torch.from_numpy(self.neighbours_sym).to(dev)
+        self._cell_area_dev = torch.from_numpy(self.cell_area).to(dev)
+        self._mesh_unit = torch.from_numpy(_props.mesh_unit_vectors(self.lat, self.lon)).to(dev)
+        self._mesh_wall = _props.mesh_weights(self.lat, self.lon, self.cell_area, dev)
+
+    @property
+    def _wrap(self) -> bool:
+        """Periodic in longitude: every gridded run but a regional one."""
+        return not self.regional_mode
+
+    def _spatial_dims(self) -> Tuple[str, ...]:
+        return (self.xdim,) if self.unstructured_grid else (self.ydim, self.xdim)
 
     # ------------------------------------------------------------------
     # Validation & coordinates
@@ -313,8 +367,23 @@ class tracker:
                 },
             )
 
-    def _validate_inputs(self, grid_resolution: Optional[float]) -> None:
-        if tuple(self.data_bin.dims) != (self.timedim, self.ydim, self.xdim):
+    def _validate_inputs(self, neighbours: Any, cell_areas: Any, grid_resolution: Optional[float]) -> None:
+        if self.regional_mode and self.unstructured_grid:
+            raise NotImplementedError("regional_mode is not yet implemented for unstructured grids")
+
+        if self.unstructured_grid:
+            self.ydim = None
+            if tuple(self.data_bin.dims) != (self.timedim, self.xdim):
+                try:
+                    self.data_bin = self.data_bin.transpose(self.timedim, self.xdim)
+                except ValueError:
+                    raise create_data_validation_error(
+                        "Invalid dimensions for unstructured data",
+                        details=f"Expected 2D array with dimensions ({self.timedim}, {self.xdim}), "
+                        f"got {list(self.data_bin.dims)}",
+                        suggestions=["Ensure data has time and cell dimensions only"],
+                    )
+        elif tuple(self.data_bin.dims) != (self.timedim, self.ydim, self.xdim):
             try:
                 self.data_bin = self.data_bin.transpose(self.timedim, self.ydim, self.xdim)
             except ValueError:
@@ -328,27 +397,48 @@ class tracker:
         if not _is_bool(self.data_bin.data):
             raise create_data_validation_error(
                 "Input DataArray must be binary (boolean type)",
-                details=f"Found dtype {self.data_bin.dtype}, expected bool",
+                details=f"Found dtype {_dtype_name(self.data_bin)}, expected bool",
                 suggestions=[
                     "Convert data using da > threshold for binary events",
                     "Use field.astype(bool) for boolean conversion",
                 ],
-                data_info={"actual_dtype": str(self.data_bin.dtype), "expected_dtype": "bool"},
+                data_info={"actual_dtype": _dtype_name(self.data_bin), "expected_dtype": "bool"},
             )
 
-        if grid_resolution is not None and (not isinstance(grid_resolution, (int, float)) or grid_resolution <= 0):
-            raise create_data_validation_error(
-                "grid_resolution must be a positive number",
-                details=f"Received grid_resolution={grid_resolution}",
-                suggestions=["Provide a positive float value representing grid resolution in degrees"],
-            )
+        if self.unstructured_grid:
+            if neighbours is None:
+                raise create_data_validation_error(
+                    "neighbours array is required for unstructured grids",
+                    details="Unstructured grid processing requires cell connectivity information",
+                    suggestions=["Provide a neighbours parameter when using unstructured_grid=True"],
+                )
+            if cell_areas is None:
+                raise create_data_validation_error(
+                    "cell_areas array is required for unstructured grids",
+                    details="Unstructured grid processing requires cell area information",
+                    suggestions=["Provide a cell_areas parameter when using unstructured_grid=True"],
+                )
+
+        if grid_resolution is not None:
+            if self.unstructured_grid:
+                raise create_data_validation_error(
+                    "grid_resolution parameter is not supported for unstructured grids",
+                    details="Grid resolution calculation requires structured (lat/lon) coordinates",
+                    suggestions=["Use cell_areas parameter directly for unstructured grids"],
+                )
+            if not isinstance(grid_resolution, (int, float)) or grid_resolution <= 0:
+                raise create_data_validation_error(
+                    "grid_resolution must be a positive number",
+                    details=f"Received grid_resolution={grid_resolution}",
+                    suggestions=["Provide a positive float value representing grid resolution in degrees"],
+                )
 
         if not _is_bool(self.mask.data):
             raise create_data_validation_error(
                 "Mask must be binary (boolean type)",
-                details=f"Found mask dtype {self.mask.dtype}, expected bool",
+                details=f"Found mask dtype {_dtype_name(self.mask)}, expected bool",
                 suggestions=["Convert mask using mask > 0 or mask.astype(bool)"],
-                data_info={"mask_dtype": str(self.mask.dtype)},
+                data_info={"mask_dtype": _dtype_name(self.mask)},
             )
 
         if not bool(self.mask.data.any()):
@@ -389,7 +479,16 @@ class tracker:
             )
 
     def _unify_coordinates(self) -> None:
-        """Auto-detect units and convert radians -> degrees (global grids)."""
+        """Auto-detect units (a regional run must state them) and convert
+        radians -> degrees."""
+        if self.regional_mode and self.coordinate_units is None:
+            raise create_coordinate_error(
+                "coordinate_units must be specified when regional_mode=True",
+                suggestions=[
+                    "Set coordinate_units='degrees' for degree-based coordinates",
+                    "Set coordinate_units='radians' for radian-based coordinates",
+                ],
+            )
         if self.coordinate_units is not None:
             if self.coordinate_units not in ("degrees", "radians"):
                 raise create_coordinate_error(
@@ -473,15 +572,25 @@ class tracker:
     # ------------------------------------------------------------------
 
     def compute_area(self, data_bin: torch.Tensor) -> np.ndarray:
-        """Active cell count per timestep, as a small host array (int32
-        accumulator: a bool sum first casts the whole field to it)."""
+        """Active cell count per timestep (int32 accumulator: a bool sum
+        first casts the whole field to it), or on a mesh the active area (a
+        float64 sum of the float32 cell areas, rounded to float32), as a
+        small host array."""
+        if self.unstructured_grid:
+            area = self._cell_area_dev.double()
+            tb = _morph._TIME_CHUNK
+            sums = [data_bin[t0 : t0 + tb].double() @ area for t0 in range(0, data_bin.shape[0], tb)]
+            return torch.cat(sums).float().cpu().numpy()
         return data_bin.sum(dim=(1, 2), dtype=torch.int32).cpu().numpy()
 
     def fill_holes(self, data: torch.Tensor, R_fill: Optional[int] = None) -> torch.Tensor:
-        """Morphological closing+opening with a disk of ``R_fill``."""
+        """Morphological closing+opening with a disk of ``R_fill`` (on a
+        mesh: by ``R_fill`` hops over the neighbour table as given)."""
         if R_fill is None:
             R_fill = self.R_fill
-        return _morph.binary_close_open_grid(data, int(R_fill), self.mask_dev)
+        if self.unstructured_grid:
+            return _morph.binary_close_open_unstructured(data, self._nb_dev, self.mask_dev, int(R_fill))
+        return _morph.binary_close_open_grid(data, int(R_fill), self.mask_dev, mode="wrap" if self._wrap else "edge")
 
     def fill_time_gaps(self, data: torch.Tensor) -> torch.Tensor:
         """Temporal closing, then a re-fill of new spatial holes at R_fill // 2."""
@@ -495,13 +604,16 @@ class tracker:
         Remove per-slice objects below the area threshold. Returns
         ``(filtered, area_threshold, object_areas, N_prefiltered, N_filtered)``.
 
-        Like the reference, the globally first object (smallest root of the
-        first slice holding any) is always dropped: the reference marks
-        ``object_ids_keep[0] = -1`` meaning to skip the background id 0, which
-        is never in that list, so its first real object goes.
+        On a grid, like the reference, the globally first object (smallest
+        root of the first slice holding any) is always dropped: the reference
+        marks ``object_ids_keep[0] = -1`` meaning to skip the background id 0,
+        which is never in that list, so its first real object goes. On a mesh
+        nothing of the kind happens (:meth:`_filter_small_objects_mesh`).
         """
+        if self.unstructured_grid:
+            return self._filter_small_objects_mesh(data)
         with self._stage_ctx("filter/ccl_fixpoint"):
-            root_flat, counts_dev, iters = _label.label_slices_grid_roots(data, wrap_x=True)
+            root_flat, counts_dev, iters = _label.label_slices_grid_roots(data, wrap_x=self._wrap)
             counts = counts_dev.cpu().numpy()
         self.ccl_iterations["filter/ccl_fixpoint"] = iters
         L = int(counts.max()) if counts.size else 0
@@ -544,6 +656,47 @@ class tracker:
             keep[t_first, 0] = False
             self._label_reuse = (weakref.ref(out), root_flat, root_ids, torch.from_numpy(keep).to(root_ids.device))
         return out, area_threshold, object_areas, N_prefiltered, N_filtered
+
+    def _filter_small_objects_mesh(self, data: torch.Tensor):
+        """The area filter on a mesh, with the reference's rules there: an
+        object's area is its cell count; objects of at most 50 cells (5 with
+        an absolute threshold) are left out of the percentile and of the
+        statistics; an object is kept when its count is strictly above the
+        threshold; no first object is dropped."""
+        with self._stage_ctx("filter/ccl_fixpoint"):
+            labels, counts = self._label_slices(data, "filter/ccl_fixpoint")
+        L = int(counts.max()) if counts.size else 0
+        if L == 0:
+            raise TrackingError(
+                "No objects found for area-based filtering",
+                details={"objects_count": 0, "area_filter_quartile": self.area_filter_quartile},
+                suggestions=[
+                    "Check if input data contains any extreme events",
+                    "Verify that preprocessing parameters are appropriate",
+                    "Consider lowering the extreme threshold percentile",
+                ],
+            )
+        with self._stage_ctx("filter/root_stats"):
+            areas_tl = _label.label_cell_counts(labels, L).float().cpu().numpy()
+        object_areas = areas_tl[:, 1:][np.arange(L)[None, :] < counts[:, None]]
+
+        min_sz = 5 if self._use_absolute_filtering else 50
+        object_areas = object_areas[object_areas > min_sz]
+        if len(object_areas) == 0:
+            raise TrackingError(
+                "No objects found for area-based filtering",
+                details={"objects_count": 0, "grid_type": "unstructured"},
+                suggestions=["Check if input data contains any extreme events"],
+            )
+        if self._use_absolute_filtering:
+            area_threshold = float(self.area_filter_absolute)
+        else:
+            area_threshold = float(np.percentile(object_areas, self.area_filter_quartile * 100))
+        keep_tl = areas_tl > area_threshold
+        keep_tl[:, 0] = False
+        with self._stage_ctx("filter/apply"):
+            filtered = _label.select_labels(labels, torch.from_numpy(keep_tl).to(labels.device))
+        return filtered, area_threshold, object_areas, int(len(object_areas)), int(np.sum(object_areas > area_threshold))
 
     def run_preprocess(self):
         """Morphological fill and area filtering; returns ``(filtered, object_stats)``."""
@@ -590,35 +743,42 @@ class tracker:
     def run_tracking(self, data_bin_preprocessed: torch.Tensor):
         """Track objects through time; returns ``(events_ds, merges_ds,
         N_events)``. Without merging, events are the 3x3x3-connected
-        components in (time, y, x); with it, the split/merge march."""
-        if self.allow_merging:
+        components in (time, y, x); with it, and always on a mesh, the
+        split/merge march."""
+        if self.allow_merging or self.unstructured_grid:
             events_ds, merges_ds, N_events = self.track_objects(data_bin_preprocessed)
             logger.info("Finished tracking all extreme events!")
             return events_ds, merges_ds, N_events
         with self._stage_ctx("ccl3d"):
-            labf, iters = _label.label_spacetime_roots(data_bin_preprocessed, wrap_x=True)
+            labf, iters = _label.label_spacetime_roots(data_bin_preprocessed, wrap_x=self._wrap)
             dense, N_events = _label.densify_spacetime_roots(labf)
             del labf
             labels = dense.view(data_bin_preprocessed.shape)
         self.ccl_iterations["ccl3d"] = iters
-        dims = (self.timedim, self.ydim, self.xdim)
+        dims = (self.timedim,) + self._spatial_dims()
         events_ds = FieldSet({"ID_field": Field(labels, dims, self.data_bin.coords, name="ID_field")})
         logger.info("Finished tracking all extreme events!")
         return events_ds, FieldSet(), N_events
 
     # -- merge tracking --------------------------------------------------
 
-    def _label_slices(self, data: torch.Tensor) -> Tuple[torch.Tensor, np.ndarray]:
+    def _label_slices(self, data: torch.Tensor, stage: str = "ccl") -> Tuple[torch.Tensor, np.ndarray]:
         """Per-slice dense labels 1..n_t in ascending-root order, and the
-        counts n_t. When ``data`` is the very field the area filter returned,
-        its kept roots are densified (single use); otherwise the slices are
-        labelled afresh."""
+        counts n_t. On a grid, when ``data`` is the very field the area
+        filter returned, its kept roots are densified (single use);
+        otherwise the slices are labelled afresh, on a mesh over the
+        symmetrised table after the mask is applied. The fixpoint's
+        iterations are recorded under ``stage``."""
+        if self.unstructured_grid:
+            labels, counts, iters = _label.label_slices_unstructured(data & self.mask_dev, self._nb_sym_dev)
+            self.ccl_iterations[stage] = iters
+            return labels, counts.cpu().numpy()
         cache, self._label_reuse = self._label_reuse, None
         if cache is not None and cache[0]() is data:
             _, root_flat, root_ids, keep = cache
         else:
-            root_flat, _, iters = _label.label_slices_grid_roots(data, wrap_x=True)
-            self.ccl_iterations["ccl"] = iters
+            root_flat, _, iters = _label.label_slices_grid_roots(data, wrap_x=self._wrap)
+            self.ccl_iterations[stage] = iters
             root_ids, _, _, _ = _label.slice_root_stats(root_flat)
             keep = None
         del cache
@@ -653,7 +813,11 @@ class tracker:
         table = ObjectTable()
         if L == 0:
             return table
-        areas, c0, c1 = (x.cpu().numpy() for x in _props.grid_label_props(labels, L, wrap=True))
+        if self.unstructured_grid:
+            props = _props.unstructured_label_props(labels, self._mesh_wall, L)
+        else:
+            props = _props.grid_label_props(labels, L, wrap=self._wrap)
+        areas, c0, c1 = (x.cpu().numpy() for x in props)
         for t in range(labels.shape[0]):
             for k in range(1, int(counts[t]) + 1):
                 table.add(int(offsets[t]) + k, float(areas[t, k]), float(c0[t, k]), float(c1[t, k]))
@@ -683,7 +847,7 @@ class tracker:
         T = labels.shape[0]
         if T < 2:
             return []
-        t, a, b, w = _overlap.consecutive_pairs(labels, int(labels.max()) + 2)
+        t, a, b, w = _overlap.consecutive_pairs(labels, int(labels.max()) + 2, self._cell_weights())
         triples = torch.stack([a, b, w], dim=1).double().cpu().numpy()
         bounds = np.searchsorted(t.cpu().numpy(), np.arange(T))
         return [triples[bounds[i] : bounds[i + 1]] for i in range(T - 1)]
@@ -691,8 +855,12 @@ class tracker:
     def _pairs_dev(self, a_dev: torch.Tensor, b_dev: torch.Tensor, key_stride: int) -> np.ndarray:
         """Overlap triples of one slice pair, counted on the device."""
         self._count_dispatch("pairs")
-        pa, pb, pw = _overlap.slice_pairs(a_dev, b_dev, key_stride)
+        pa, pb, pw = _overlap.slice_pairs(a_dev, b_dev, key_stride, self._cell_weights())
         return torch.stack([pa, pb, pw], dim=1).double().cpu().numpy()
+
+    def _cell_weights(self) -> Optional[torch.Tensor]:
+        """What an overlap sums: cell areas on a mesh, cell counts on a grid."""
+        return self._cell_area_dev if self.unstructured_grid else None
 
     def _all_overlaps(self, labels: torch.Tensor) -> np.ndarray:
         """Overlap pairs of all consecutive slices, as one sorted list."""
@@ -742,9 +910,11 @@ class tracker:
         news = [resolve(o) for o, _ in renames]
         final_targets = sorted({resolve(f) for f in changed_targets})
         sl = store.get_dev(t_slice)
-        sl, tprops = _part.relabel_and_props_slice(
-            sl, olds, news, torch.tensor(final_targets, dtype=torch.int32, device=sl.device), True
-        )
+        targets = torch.tensor(final_targets, dtype=torch.int32, device=sl.device)
+        if self.unstructured_grid:
+            sl, tprops = _part.relabel_and_props_unstructured(sl, olds, news, targets, self._mesh_wall)
+        else:
+            sl, tprops = _part.relabel_and_props_slice(sl, olds, news, targets, self._wrap)
         store.set_dev(t_slice, sl)
         tp = tprops.cpu().numpy()
         for i, fid in enumerate(final_targets):
@@ -886,27 +1056,38 @@ class tracker:
             cents[i, :n] = np.array([table.centroid(int(p)) for p in par], np.float32)
             if self.nn_partitioning:
                 max_area = max(table.area(int(p)) for p in par)
-                mdist[i] = float(max(int(np.sqrt(max_area) * 3.0), 40))
+                if self.unstructured_grid:  # a cap in hops, from the area in cells
+                    mdist[i] = float(max(int(np.sqrt(max_area / self.mean_cell_area) * 2.0), 20) * 2)
+                else:
+                    mdist[i] = float(max(int(np.sqrt(max_area) * 3.0), 40))
         self._count_dispatch("partition")
         cur = store.get_dev(t)
+        dev = cur.device
+        arrays = [torch.from_numpy(x).to(dev) for x in (child_arr, piece, pids, valid, cents, mdist)]
+        if self.unstructured_grid:
+            new_cur, piece_props = _part.partition_children_unstructured_batched(
+                store.get_dev(t - 1), cur, *arrays, self._nb_dev, self._mesh_unit, self._mesh_wall,
+                self.nn_partitioning, int(max(mdist.max(), 1.0)),
+            )
+        else:
+            new_cur, piece_props = self._partition_grid(store.get_dev(t - 1), cur, arrays, float(mdist.max()))
+        store.set_dev(t, new_cur)
+        self._enter_pieces(table, batch, piece_props.cpu().numpy())
+
+    def _partition_grid(self, prev: torch.Tensor, cur: torch.Tensor, arrays, max_cap: float):
+        """The gridded partition call of one batch."""
         H = cur.shape[0]
         # a row window covering the batch's largest cap lets the EDT's
         # column pass look only at nearby rows (exact for capped distances)
         row_window = 0
-        if self.nn_partitioning and mdist.max() > 0:
-            win = 1 << max(0, int(np.ceil(np.log2(max(float(mdist.max()), 1.0)))))
+        if self.nn_partitioning and max_cap > 0:
+            win = 1 << max(0, int(np.ceil(np.log2(max(max_cap, 1.0)))))
             row_window = 0 if 2 * win + 1 >= H else win
-        dev = cur.device
-        new_cur, piece_props = _part.partition_children_grid_batched(
-            store.get_dev(t - 1),
-            cur,
-            *(torch.from_numpy(x).to(dev) for x in (child_arr, piece, pids, valid, cents, mdist)),
-            self.nn_partitioning,
-            True,
-            row_window,
-        )
-        store.set_dev(t, new_cur)
-        pp = piece_props.cpu().numpy()  # (K, P, 3)
+        return _part.partition_children_grid_batched(prev, cur, *arrays, self.nn_partitioning, self._wrap, row_window)
+
+    @staticmethod
+    def _enter_pieces(table: ObjectTable, batch, pp: np.ndarray) -> None:
+        """Enter the (K, P, 3) properties of a batch's pieces in the table."""
         for i, (_, _, cids) in enumerate(batch):
             for j, pid_new in enumerate(cids):
                 pid_new = int(pid_new)
@@ -990,7 +1171,7 @@ class tracker:
                         ledger[tixd, pn, :k] = parents_new[:k]
 
         tdims = (self.timedim,)
-        sdims = (self.ydim, self.xdim)
+        sdims = self._spatial_dims()
         coords = dict(self.data_bin.coords)
         id_coord = Coord("ID", np.arange(1, N + 1, dtype=np.int32))
         events_ds = FieldSet(
@@ -1021,17 +1202,20 @@ class tracker:
     def _event_stats(self, event_field: torch.Tensor, n_events: int):
         """Physical areas and area-weighted (lat, lon) centroids per (time,
         event), NaN where the event is absent; (T, n_events + 1) float32 on
-        the field's device."""
+        the field's device. On a mesh the centroids are spherical."""
         dev = event_field.device
         if n_events == 0:
             z = torch.zeros((event_field.shape[0], 1), dtype=torch.float32, device=dev)
             return z, z.clone(), z.clone()
-        areas, cy, cx = _props.grid_label_props(event_field, n_events, wrap=True,
+        nan = torch.tensor(float("nan"), device=dev)
+        if self.unstructured_grid:
+            areas, clat, clon = _props.unstructured_label_props(event_field, self._mesh_wall, n_events)
+            return torch.where(areas > 0, areas, nan), clat, clon
+        areas, cy, cx = _props.grid_label_props(event_field, n_events, wrap=self._wrap,
                                                 cell_weights=torch.from_numpy(self.cell_area).to(dev))
         cy = _props.interp_coord(cy, torch.from_numpy(self.lat.astype(np.float32)).to(dev))
         cx = _props.interp_coord(cx, torch.from_numpy(self.lon.astype(np.float32)).to(dev))
         present = areas > 0
-        nan = torch.tensor(float("nan"), device=dev)
         clat = torch.where(present, cy, nan)
         clon = torch.where(present, cx, nan)
         return torch.where(present, areas, nan), clat, clon
@@ -1173,4 +1357,50 @@ def _build_merge_events(
             ),
         },
         attrs={"fill_value": -1},
+    )
+
+
+def _symmetrize_neighbours(nb: np.ndarray) -> np.ndarray:
+    """
+    Symmetrised neighbour table: every directed edge (i -> j) of the (K, C)
+    0-based table gains its reverse, grouped back into a fixed-width
+    (K', C) table (-1 padded), each cell's neighbours ascending. Mesh files
+    carry asymmetric entries; labelling treats them as undirected.
+    """
+    K, C = nb.shape
+    src = np.broadcast_to(np.arange(C, dtype=np.int64), (K, C))[nb >= 0]
+    dst = nb[nb >= 0].astype(np.int64)
+    # one int64 key an edge, a * C + b: a flat sort in (a, b) order (a sort of
+    # index pairs takes ten times as long at a million cells)
+    keys = np.unique(np.concatenate([src * C + dst, dst * C + src]))
+    a, b = keys // C, keys % C
+    deg = np.bincount(a, minlength=C)
+    out = np.full((max(int(deg.max()) if len(keys) else 1, 1), C), -1, np.int32)
+    out[np.arange(len(keys)) - (np.cumsum(deg) - deg)[a], a] = b
+    return out
+
+
+def regional_tracker(
+    data_bin: Any,
+    mask: Any,
+    coordinate_units: str,
+    R_fill: Union[int, float],
+    area_filter_quartile: Optional[float] = None,
+    area_filter_absolute: Optional[int] = None,
+    **kwargs: Any,
+) -> tracker:
+    """
+    A tracker for a regional (non-global) domain with open boundaries: sets
+    ``regional_mode=True`` and requires the coordinate units
+    (``marex_tpu.regional_tracker``).
+    """
+    return tracker(
+        data_bin,
+        mask,
+        R_fill=R_fill,
+        area_filter_quartile=area_filter_quartile,
+        area_filter_absolute=area_filter_absolute,
+        regional_mode=True,
+        coordinate_units=coordinate_units,
+        **kwargs,
     )

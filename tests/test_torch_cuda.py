@@ -1,6 +1,6 @@
-"""The port's CUDA kernels, its config-1 slice and its merge tracking on the
-card: each kernel against its plain PyTorch version, and each path on CUDA
-against the same path on the CPU. Every test needs a CUDA device (and
+"""The port's CUDA kernels, its config-1 slice, its merge tracking, its mesh
+tracking and its regional mode on the card: each kernel against its plain
+PyTorch version, and each path on CUDA against the same path on the CPU. Every test needs a CUDA device (and
 ``nvcc`` to build the kernels) and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -27,7 +27,10 @@ from marex_tpu_torch.ops.min_stencil import (
     spacetime_min_plain,
 )
 
-from .torch_parity import merge_dense_field
+from marex_tpu_torch.ops.graph_step import graph_step, graph_step_plain, neighbour_min_plain
+from marex_tpu_torch.track import _symmetrize_neighbours
+
+from .torch_parity import blob_field, merge_dense_field, mesh_merge_field, tri_mesh
 
 DETECT_FIXED = dict(method_anomaly="fixed_baseline", method_extreme="global_extreme", threshold_percentile=95)
 TRACK_SMALL = dict(R_fill=2, T_fill=2, area_filter_absolute=8, allow_merging=False)
@@ -256,3 +259,110 @@ def test_merge_on_cuda_matches_cpu():
         assert np.array_equal(c_mg[name].values, g_mg[name].values), name
     assert g_ev.attrs == c_ev.attrs and g_ev.attrs["total_merges"] > 0
     assert g_ev["ID_field"].data.is_cuda and g_tr.dispatch_counts["partition"] > 0
+
+
+def _mesh_tables():
+    rng = np.random.default_rng(1)
+    directed = rng.integers(0, 30011, (3, 30011)).astype(np.int32)
+    directed[rng.random(directed.shape) < 0.3] = -1
+    return {
+        "tri_mesh": _symmetrize_neighbours(tri_mesh(4096)[0] - 1),
+        "tri_mesh_as_given": tri_mesh(4096)[0] - 1,
+        "random_directed_symmetrised": _symmetrize_neighbours(directed),
+        "icon_like_1m": _symmetrize_neighbours(tri_mesh(1048576)[0] - 1),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tri_mesh", "tri_mesh_as_given", "random_directed_symmetrised", "icon_like_1m"])
+def test_cuda_graph_step_matches_plain_version(name):
+    """Bit for bit, ``out`` and the flag, from a BIG-filled and a stale
+    ``out >= m``, with slice counts that end inside a chunk of slices; on
+    the 1M-cell table also 67 slices, where each block walks several chunks
+    (on the smaller tables and counts a block has one); on the smaller
+    tables the whole fixpoint equals the CPU's."""
+    _need_cuda()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    nb = torch.from_numpy(_mesh_tables()[name]).cuda()
+    C = nb.shape[1]
+    for T in (1, 11, 67) if C > 100000 else (1, 11):
+        data = torch.rand((T, C), generator=g, device="cuda") < 0.5
+        lab = torch.randint(0, C, (T, C), generator=g, device="cuda", dtype=torch.int32)
+        lab.masked_fill_(~data & (torch.rand((T, C), generator=g, device="cuda") < 0.5), BIG)
+        m = neighbour_min_plain(lab, data, nb)
+        up = torch.randint(0, 3, (T, C), generator=g, device="cuda", dtype=torch.int32)
+        for out in (torch.full_like(lab, BIG), torch.where(m >= BIG - 2, m, m + up)):
+            want = out.clone()
+            flag_want = graph_step_plain(lab, data, nb, want)
+            flag = graph_step(lab, data, nb, out)
+            assert torch.equal(out, want) and bool(flag) == bool(flag_want), (name, T)
+        if C < 100000:
+            lab_g, counts_g, it_g = port_label.label_slices_unstructured(data, nb)
+            lab_c, counts_c, it_c = port_label.label_slices_unstructured(data.cpu(), nb.cpu())
+            assert torch.equal(lab_g.cpu(), lab_c) and torch.equal(counts_g.cpu(), counts_c) and it_g == it_c
+
+
+@pytest.mark.cuda
+def test_mesh_tracking_on_cuda_matches_cpu():
+    """Merge tracking on the triangle-pair mesh with uneven cell areas:
+    integer outputs and merge records bit-identical, area, centroid and the
+    merges' overlap areas within 1e-5 (float64 sums in another order)."""
+    _need_cuda()
+    nb, lat, lon = tri_mesh(4096)
+    areas = (1e3 * np.cos(np.deg2rad(lat)) * np.random.default_rng(0).uniform(0.8, 1.2, len(lat))).astype(np.float32)
+    data = mesh_merge_field(lat, lon)
+    sc = {"lat": ("ncells", lat), "lon": ("ncells", lon)}
+    times = np.datetime64("2001-03-01", "ns") + np.arange(len(data)) * np.timedelta64(1, "D")
+    out = {}
+    for device in ("cpu", "cuda"):
+        ev = port.Field(torch.from_numpy(data).to(device), ("time", "ncells"), {"time": times, **sc}, name="extreme_events")
+        mask = port.Field(torch.ones(len(lat), dtype=torch.bool, device=device), ("ncells",), sc, name="mask")
+        tr = port.tracker(ev, mask, R_fill=1, T_fill=2, area_filter_quartile=0.1, allow_merging=True, nn_partitioning=True,
+                          overlap_threshold=0.25, unstructured_grid=True, coordinate_units="degrees",
+                          dimensions={"x": "ncells"}, coordinates={"x": "lon", "y": "lat"}, neighbours=nb,
+                          cell_areas=areas, device=device, quiet=True)
+        out[device] = tr.run(return_merges=True), tr
+    (c_ev, c_mg), c_tr = out["cpu"]
+    (g_ev, g_mg), g_tr = out["cuda"]
+    for name in ("ID_field", "global_ID", "presence", "merge_ledger", "time_start", "time_end"):
+        assert np.array_equal(c_ev[name].values, g_ev[name].values), name
+    for name in ("area", "centroid"):
+        np.testing.assert_allclose(c_ev[name].values, g_ev[name].values, rtol=1e-5, atol=1e-5, err_msg=name)
+    for name in ("parent_IDs", "child_IDs", "merge_time", "n_parents", "n_children"):
+        assert np.array_equal(c_mg[name].values, g_mg[name].values), name
+    np.testing.assert_allclose(c_mg["overlap_areas"].values, g_mg["overlap_areas"].values, rtol=1e-5)
+    assert g_ev.attrs["total_merges"] == c_ev.attrs["total_merges"] > 0
+    assert g_tr.ccl_iterations == c_tr.ccl_iterations and g_tr.dispatch_counts["partition"] > 0
+    assert g_ev["ID_field"].data.is_cuda
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", [False, True], ids=["no_merge", "merge"])
+def test_regional_tracking_on_cuda_matches_cpu(merge):
+    """``regional_tracker`` (no seam in longitude: the kernels' ``wrap_x=0``
+    branch on a real path) on the card and on the CPU."""
+    _need_cuda()
+    data = merge_dense_field(T=40, n_pairs=3, seed=2, ny=24, nx=48) if merge else blob_field(3, 30, 24, 48, 80, 5)
+    T, H, W = data.shape
+    coords = {
+        "time": np.datetime64("2000-01-01", "ns") + np.arange(T) * np.timedelta64(1, "D"),
+        "lat": np.linspace(30.0, 70.0, H),
+        "lon": np.linspace(-30.0, 40.0, W),
+    }
+    kw = dict(R_fill=1, T_fill=2, area_filter_absolute=6, allow_merging=merge, quiet=True)
+    if merge:
+        kw.update(nn_partitioning=True, overlap_threshold=0.25)
+    out = {}
+    for device in ("cpu", "cuda"):
+        ev = port.Field(torch.from_numpy(data).to(device), ("time", "lat", "lon"), coords, name="extreme_events")
+        mask = port.Field(torch.ones((H, W), dtype=torch.bool, device=device), ("lat", "lon"),
+                          {"lat": coords["lat"], "lon": coords["lon"]}, name="mask")
+        out[device] = port.regional_tracker(ev, mask, "degrees", device=device, **kw).run()
+    c, g = out["cpu"], out["cuda"]
+    names = ("ID_field", "global_ID", "presence", "merge_ledger") if merge else ("ID_field",)
+    for name in names:
+        assert np.array_equal(c[name].values, g[name].values), name
+    assert g.attrs == c.attrs and g.attrs["N_events_final"] > 0
+    if merge:
+        assert g.attrs["total_merges"] > 0

@@ -119,9 +119,21 @@ def test_validation_errors_match(sst):
     "kw, item",
     [
         (dict(mesh=True), "item 11"),
-        (dict(dimensions={"time": "time", "x": "lon"}, coordinates={"x": "lon", "y": "lat"}), "item 9"),
+        (dict(dimensions={"time": "time", "x": "cell"}, coordinates={"time": "time", "x": "lon", "y": "lat"}), None),
     ],
 )
 def test_unported_options_name_their_roadmap_item(sst, kw, item):
+    if item is None:  # ported: (time, cell) data runs, and gives the reference's extremes
+        T, H, W = sst.shape
+        lat, lon = (np.asarray(sst.coords[k].values) for k in ("lat", "lon"))
+        cells = {"lat": ("cell", np.repeat(lat, W)), "lon": ("cell", np.tile(lon, H))}
+        flat = ref.Field(np.asarray(sst.values).reshape(T, H * W), ("time", "cell"),
+                         {"time": sst.coords["time"].values, **cells}, name="sst")
+        r = ref.preprocess_data(flat, quiet=True, **{**DETECT_FIXED, **kw})
+        p = port.preprocess_data(from_reference(flat, "cpu"), device="cpu", quiet=True, **{**DETECT_FIXED, **kw})
+        assert p["extreme_events"].dims == r["extreme_events"].dims == ("time", "cell")
+        np.testing.assert_array_equal(p["extreme_events"].values, np.asarray(r["extreme_events"].values))
+        assert bool(p["extreme_events"].values.any())
+        return
     with pytest.raises(NotImplementedError, match=item):
         port.preprocess_data(from_reference(sst, "cpu"), device="cpu", quiet=True, **{**DETECT_FIXED, **kw})

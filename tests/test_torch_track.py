@@ -18,7 +18,7 @@ from marex_tpu_torch.ops import label as port_label
 from marex_tpu_torch.ops import morphology as port_morph
 from marex_tpu_torch.ops.min_stencil import BIG, hook_plain, min_stencil_plain, pointer_jump_plain, spacetime_min_plain
 
-from .torch_parity import assert_same, blob_field, bool_fields
+from .torch_parity import MESH_KW, assert_same, blob_field, bool_fields, mesh_fields, tri_mesh
 
 # (T, H, W, n_blobs, r_max): at most 64 objects per slice, and more than 64
 FEW = (10, 32, 48, 60, 5)
@@ -176,8 +176,8 @@ def test_fixpoint_raises_when_it_does_not_converge(monkeypatch):
     "kw, item",
     [
         (dict(merge_ledger_mode="bogus"), None),
-        (dict(unstructured_grid=True), "item 9"),
-        (dict(regional_mode=True), "item 8"),
+        (dict(unstructured_grid=True), "runs"),
+        (dict(regional_mode=True), "runs"),
         (dict(mesh=True), "item 11"),
         (dict(checkpoint="save"), "item 3"),
     ],
@@ -191,6 +191,20 @@ def test_unported_tracker_options_name_their_roadmap_item(kw, item):
         with pytest.raises(port.ConfigurationError) as p:
             port.tracker(from_reference(ev, "cpu"), from_reference(mask, "cpu"), **{**args, **kw})
         assert p.value.message == r.value.message
+        return
+    if item == "runs":  # ported: a mesh and a regional grid run, and give the reference's events
+        extra = {}
+        if "unstructured_grid" in kw:
+            nb, lat, lon = tri_mesh(FEW[1] * FEW[2])
+            ev, mask, nbf, ca = mesh_fields(_field(FEW).reshape(FEW[0], -1)[:, : len(lat)], lat, lon, nb,
+                                            np.ones(len(lat), np.float32))
+            kw = dict(MESH_KW, neighbours=nbf, cell_areas=ca)
+            extra = dict(neighbours=from_reference(nbf, "cpu"), cell_areas=from_reference(ca, "cpu"))
+        kw = dict(kw, coordinate_units="degrees", quiet=True)
+        r = ref.tracker(ev, mask, R_fill=1, area_filter_absolute=4, allow_merging=False, **kw).run()
+        p = port.tracker(from_reference(ev, "cpu"), from_reference(mask, "cpu"), **{**args, **kw, **extra}).run()
+        assert p.attrs["N_events_final"] == r.attrs["N_events_final"] > 0
+        assert_same(r["ID_field"].values, p["ID_field"].values, "ID_field")
         return
     with pytest.raises(NotImplementedError, match=item):
         port.tracker(from_reference(ev, "cpu"), from_reference(mask, "cpu"), **{**args, **kw})

@@ -97,6 +97,79 @@ def bool_fields(data: np.ndarray, mask: np.ndarray):
     return ev, mk
 
 
+def tri_mesh(n_cells: int):
+    """Triangle-pair mesh on a lat/lon lattice, periodic in both directions:
+    (neighbours (3, C) 1-based int32, lat (C,), lon (C,)) with
+    C = 2 * gy * gx <= n_cells — the recipe of ``bench._tri_mesh``."""
+    gx = int(np.sqrt(n_cells / 2))
+    gy = max(n_cells // (2 * gx), 2)
+    C = 2 * gy * gx
+    jj, ii = np.mgrid[0:gy, 0:gx]
+    lo = 2 * (jj * gx + ii)
+    up = lo + 1
+
+    def tid(j, i, upper):
+        return (2 * ((j % gy) * gx + (i % gx)) + upper).astype(np.int32)
+
+    nb = np.empty((3, C), dtype=np.int32)
+    nb[0].reshape(gy, 2 * gx)[:, 0::2] = up
+    nb[1].reshape(-1)[lo.ravel()] = tid(jj, ii - 1, 1).ravel()
+    nb[2].reshape(-1)[lo.ravel()] = tid(jj - 1, ii, 1).ravel()
+    nb[0].reshape(-1)[up.ravel()] = lo.ravel()
+    nb[1].reshape(-1)[up.ravel()] = tid(jj, ii + 1, 0).ravel()
+    nb[2].reshape(-1)[up.ravel()] = tid(jj + 1, ii, 0).ravel()
+
+    lat_g = np.linspace(-60, 60, gy)
+    lon_g = np.linspace(0, 360, gx, endpoint=False)
+    lat_c = np.empty(C, np.float64)
+    lon_c = np.empty(C, np.float64)
+    lat_c[lo.ravel()] = np.broadcast_to(lat_g[:, None], (gy, gx)).ravel() - 0.2
+    lat_c[up.ravel()] = np.broadcast_to(lat_g[:, None], (gy, gx)).ravel() + 0.2
+    lon_c[lo.ravel()] = np.broadcast_to(lon_g[None, :], (gy, gx)).ravel()
+    lon_c[up.ravel()] = np.broadcast_to(lon_g[None, :], (gy, gx)).ravel() + 0.2
+    return nb + 1, lat_c, lon_c
+
+
+def mesh_merge_field(lat_c: np.ndarray, lon_c: np.ndarray, T: int = 30, seed: int = 5) -> np.ndarray:
+    """(T, C) bool field on a mesh: in two latitude bands a pair of patches
+    that converge (one pair across the lon seam), join and drift apart again,
+    plus blinking blobs of several sizes — merges and splits that the area
+    filter leaves in."""
+    rng = np.random.default_rng(seed)
+    data = np.zeros((T, len(lat_c)), bool)
+
+    def dlon(c):
+        return np.minimum(np.abs(lon_c - c), 360.0 - np.abs(lon_c - c))
+
+    for t in range(T):
+        sep = max(52.0 - 3.0 * min(t, T - 1 - t), 10.0)
+        for lat0, lon0 in ((15.0, 100.0), (-20.0, 355.0)):
+            for sgn in (-1, 1):
+                data[t] |= (np.abs(lat_c - lat0) < 15.0) & (dlon((lon0 + sgn * sep) % 360.0) < 20.0)
+    for _ in range(12):
+        lat0, lon0, rad = rng.uniform(-50, 50), rng.uniform(0, 360), rng.uniform(4, 12)
+        days = rng.random(T) < 0.4
+        data[days] |= (np.abs(lat_c - lat0) < rad) & (dlon(lon0) < rad)
+    return data
+
+
+def mesh_fields(data: np.ndarray, lat_c, lon_c, neighbours, cell_areas, mask=None):
+    """``(extreme_events, mask, neighbours, cell_areas)`` reference Fields on
+    an unstructured mesh (dims ``time``, ``ncells``, ``nv``)."""
+    from marex_tpu.core.field import Field
+
+    T, C = data.shape
+    sc = {"lat": ("ncells", np.asarray(lat_c)), "lon": ("ncells", np.asarray(lon_c))}
+    times = pd.date_range("2001-03-01", periods=T, freq="D").to_numpy()
+    ev = Field(data, ("time", "ncells"), {"time": times, **sc}, name="extreme_events")
+    mk = Field(np.ones(C, bool) if mask is None else mask, ("ncells",), sc, name="mask")
+    return ev, mk, Field(neighbours, ("nv", "ncells"), name="neighbours"), Field(cell_areas, ("ncells",), name="cell_areas")
+
+
+MESH_KW = dict(unstructured_grid=True, coordinate_units="degrees", dimensions={"x": "ncells"},
+               coordinates={"x": "lon", "y": "lat"}, quiet=True)
+
+
 def to_np(x) -> np.ndarray:
     """Host numpy view of a torch tensor or a JAX/numpy array."""
     if isinstance(x, torch.Tensor):
