@@ -36,7 +36,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
    unstructured mesh, merging) at 2 yr x 32768 cells, held like config 4,
    with merges on the mesh; config 3 (a regional domain, no merging) at
    3 yr x 90 x 180 with ``extreme_events``, ``mask``, ``ID_field`` and attrs
-   bit-identical, and its first 400 days with merging on, held like config 4;
+   bit-identical, and its first 400 days with merging on, held like config 4.
+   Streamed tracking (``tracker.run_streamed`` from a lazy zarr store, in at
+   least 4 time blocks) of config 4's slice and of config 5's, each held like
+   config 4 against its in-memory run on the card and against the CPU's;
 5. the paths at full size, generated on the card from ``--seed``. At
    3 yr x 720 x 1440 daily (0.25 degree global): ``preprocess_data`` then
    ``tracker(R_fill=12, T_fill=4, area_filter_absolute=600,
@@ -50,9 +53,16 @@ Phases, each of which raises (and so exits nonzero) on failure:
    triangular mesh, config 1's detect on (time, cell) data and
    ``tracker(unstructured_grid=True, **TRACK_CONFIG5)``; and config 3:
    3 yr x 360 x 720 over lat 30..70, lon -30..40, config 1's detect and
-   ``regional_tracker(..., **TRACK_CONFIG3)``. Each path is run with the
-   kernels' launch counts set to 0 just before it and read just after, and
-   must have launched the kernels it labels on;
+   ``regional_tracker(..., **TRACK_CONFIG3)``. Then the out-of-core path:
+   config 7 (config 2's detect streamed by ``preprocess_data_streamed`` from
+   the SST in pinned host memory, ``memory_budget_mb=2048``, raw chunks, into
+   a temporary store) held bit for bit against config 2's in-memory detect,
+   and config 8 (config 4's extremes in a zarr store with 64-day chunks,
+   tracked by ``run_streamed(memory_budget_mb=2048)``) held against config
+   4's in-memory run like the phase-4 slices, its peak device memory within
+   twice the budget. Each path is run with the kernels' launch counts set to
+   0 just before it and read just after, and must have launched the kernels
+   it labels on (config 7, detect alone, labels nothing);
 6. the kernels on the paths' own labels: the area filter's fixpoint on
    config 4's field, run by hand with each launch timed, and at its
    iterations 1, 6 and 12 the fused step and the jump timed beside the
@@ -79,9 +89,13 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pandas as pd
@@ -590,7 +604,7 @@ def slices_against_cpu(mx, ny: int, nx: int, seed: int, device: str) -> None:
     )
     del ds_g, ev_g, tr_g, ds_c, ev_c, tr_c
 
-    _, ev_g, mg_g, tr_g, det_g, trk_g, _ = run_slice(mx, sst, coords, device, ny, merge=True)
+    ds_g, ev_g, mg_g, tr_g, det_g, trk_g, _ = run_slice(mx, sst, coords, device, ny, merge=True)
     _, ev_c, mg_c, tr_c, det_c, trk_c, _ = run_slice(mx, sst_cpu, coords, "cpu", ny, merge=True)
     diff = compare_merge_runs(ev_g, mg_g, tr_g, ev_c, mg_c)
     m_attrs = {k: ev_g.attrs[k] for k in ("N_objects_filtered", "N_events_final", "total_merges", "multi_parent_merges")}
@@ -602,8 +616,39 @@ def slices_against_cpu(mx, ny: int, nx: int, seed: int, device: str) -> None:
     )
     print(f"merge slice stage_walls cuda: {json.dumps(tr_g.stage_walls)}")
     print(f"merge slice stage_walls cpu: {json.dumps(tr_c.stage_walls)}")
-    del ev_g, mg_g, tr_g, ev_c, mg_c, tr_c
+    streamed_slice(mx, ds_g, ev_g, mg_g, ev_c, mg_c, 256, f"config 4 slice 3yr x {ny} x {nx}",
+                   lambda ev: mx.tracker(ev, ds_g.mask, device=device, quiet=True, **track_kwargs(ny, True)))
+    del ds_g, ev_g, mg_g, tr_g, ev_c, mg_c, tr_c
     detect_methods_against_cpu(mx, sst, sst_cpu, coords, ny, nx, seed, device)
+
+
+def streamed_slice(mx, ds, ev_mem, mg_mem, ev_cpu, mg_cpu, block_T: int, what: str, make_tracker) -> None:
+    """Phase 4, streamed tracking of a slice's extremes on the card: the
+    field written to a zarr store with ``block_T``-day chunks, opened lazily
+    and tracked by ``run_streamed`` in at least 4 blocks of ``block_T``;
+    held like ``compare_merge_runs`` against the in-memory run on the card
+    and against the CPU's."""
+    from marex_tpu_torch.io import zarr_lite
+
+    work = tempfile.mkdtemp(prefix="marex_smoke_")
+    try:
+        src = os.path.join(work, "extremes.zarr")
+        zarr_lite.to_zarr(ds.extreme_events, src, chunks={"time": block_T})
+        tr = make_tracker(zarr_lite.open_zarr(src, lazy=True)["extreme_events"])
+        t0 = time.perf_counter()
+        ev, mg = tr.run_streamed(os.path.join(work, "events.zarr"), block_T=block_T, return_merges=True)
+        wall = time.perf_counter() - t0
+        if tr.dispatch_counts.get("march_block", 0) < 4:
+            raise AssertionError(f"{what}: streamed in fewer than 4 blocks: {tr.dispatch_counts}")
+        d_mem = compare_merge_runs(ev, mg, tr, ev_mem, mg_mem, f"{what} streamed vs in-memory")
+        d_cpu = compare_merge_runs(ev, mg, tr, ev_cpu, mg_cpu, f"{what} streamed vs CPU")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"{what} streamed in {tr.dispatch_counts['march_block']} blocks of {block_T} days: == in-memory on the card "
+          f"and == CPU (ID_field, global_ID, presence, merge_ledger, time_start/end and merge records bit-identical; "
+          f"max |diff| (abs, rel) vs in-memory area {d_mem['area']}, centroid {d_mem['centroid']}; vs CPU area "
+          f"{d_cpu['area']}, centroid {d_cpu['centroid']}); N_events_final {ev.attrs['N_events_final']}, total_merges "
+          f"{ev.attrs['total_merges']}; wall {wall:.3f} s; stage_walls {json.dumps(tr.stage_walls)}")
 
 
 def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
@@ -718,12 +763,14 @@ def hobday_split(mx, ds, tinfo) -> dict:
             "bins_bytes": bins.numel() * bins.element_size()}
 
 
-def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str) -> dict:
+def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str):
     """Phase 5: config 1, config 2, then the merge path (config 4), at
     3 yr x ny x nx generated on ``device``, each with the kernels' launch
     counts set to 0 just before it and read just after. Prints each path's
-    walls, counts and memory, and config 2's detect split; returns {path:
-    launch counts}."""
+    walls, counts and memory, and config 2's detect split; returns ({path:
+    launch counts}, host copies of the SST (pinned), config 2's detect
+    outputs and config 4's extremes, mask and outputs, for the streamed
+    paths)."""
     from marex_tpu_torch.core.timeaxis import decompose_time
 
     t0 = time.perf_counter()
@@ -732,6 +779,7 @@ def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str) -> d
         torch.cuda.synchronize()
     print(f"data: {tuple(sst.shape)} generated on the card in {time.perf_counter() - t0:.1f} s")
     launches = {}
+    refs = {"coords": coords}
     paths = (("config 1", DETECT_FIXED, False), ("config 2", DETECT_CONFIG2, False),
              ("merge path (config 4)", DETECT_FIXED, True))
     for path, detect, merge in paths:
@@ -752,11 +800,20 @@ def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str) -> d
             check_event_ids(events, (T, ny, nx))
         report_path(f"{path} {sst.shape[0]} x {ny} x {nx} (tracked {T} days)", sst.numel(), events, tr, t_det, t_trk,
                     detect_peak, launches[path])
+        if detect is DETECT_CONFIG2:
+            refs["config 2"] = {k: ds[k].values for k in ("dat_anomaly", "extreme_events", "thresholds", "mask")}
+        if merge:
+            refs["config 4"] = dict(
+                extremes=ds["extreme_events"].values, mask=ds["mask"].values, peak=torch.cuda.max_memory_allocated(),
+                wall=t_trk, events={k: events[k].values for k in events.data_vars}, attrs=dict(events.attrs),
+                merges={k: merges[k].values for k in merges.data_vars},
+            )
         del events, merges, tr, thr, mask
         if detect is DETECT_CONFIG2:
             config2_detect_split(mx, sst, coords, ds, decompose_time(ds.coords["time"].values))
         del ds
-    return launches
+    refs["sst"] = torch.empty(sst.shape, dtype=sst.dtype, pin_memory=True).copy_(sst)
+    return launches, refs
 
 
 def config2_detect_split(mx, sst, coords, ds, tinfo) -> None:
@@ -1058,6 +1115,9 @@ def mesh_against_cpu(mx, seed: int, device: str) -> None:
     if tr_g.ccl_iterations != tr_c.ccl_iterations:
         raise AssertionError(f"mesh slice: fixpoint iterations {tr_g.ccl_iterations} (CUDA) vs {tr_c.ccl_iterations} (CPU)")
     check_merge_outputs(ev_g, mg_g, tuple(sst.shape))
+    streamed_slice(mx, ds_g, ev_g, mg_g, ev_c, mg_c, 128, f"config 5 slice {tuple(sst.shape)}",
+                   lambda ev: mx.tracker(ev, ds_g.mask, neighbours=ds_g.neighbours, cell_areas=ds_g.cell_areas,
+                                         device=device, quiet=True, **TRACK_CONFIG5))
     attrs = {k: ev_g.attrs[k] for k in ("N_objects_prefiltered", "N_objects_filtered", "N_events_final", "total_merges")}
     print(
         f"mesh slice (config 5) {tuple(sst.shape)}: CUDA == CPU (extreme_events, mask, ID_field, global_ID, presence, "
@@ -1156,6 +1216,132 @@ def mesh_and_regional_paths(mx, seed: int, kernels: dict) -> dict:
         raise AssertionError("config 3: non-finite thresholds over the ocean")
     check_event_ids(events, tuple(sst.shape))
     report_path(f"config 3 {tuple(sst.shape)}", sst.numel(), events, tr, t_det, t_trk, detect_peak, launches["config 3"])
+    return launches
+
+
+def store_bytes(path: str) -> int:
+    """Bytes of every file under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def equal_blocks(lazy, want: np.ndarray) -> bool:
+    """A lazy zarr array equals ``want`` bit for bit, read a chunk of its
+    leading axis at a time in threads (zlib and the reads release the GIL)."""
+    step = lazy.chunks[0]
+
+    def same(s0: int) -> bool:
+        return np.array_equal(lazy[s0 : s0 + step], want[s0 : s0 + step])
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return all(pool.map(same, range(0, lazy.shape[0], step)))
+
+
+def streamed_paths(mx, refs: dict, kernels: dict) -> dict:
+    """Phase 5, the out-of-core path at full size, into a temporary directory:
+    config 7 (config 2's detect through ``preprocess_data_streamed`` from the
+    SST in pinned host memory, ``memory_budget_mb=2048``, raw chunks) against
+    config 2's in-memory outputs, bit for bit; config 8 (config 4's extremes
+    in a zarr store with 64-day chunks, tracked by ``run_streamed`` at
+    ``memory_budget_mb=2048``) against config 4's in-memory run like the
+    phase-4 slices, its peak within twice the budget. Each with the kernels'
+    launch counts set to 0 just before it and read just after; returns
+    {path: launch counts}."""
+    from marex_tpu_torch.io import zarr_lite
+
+    launches = {}
+    budget_mb = 2048
+
+    def start():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launch_count = 0
+
+    work = tempfile.mkdtemp(prefix="marex_smoke_")
+    try:
+        # ---- config 7: streamed detect -------------------------------------
+        sst = refs.pop("sst")
+        coords = refs["coords"]
+        T, ny, nx = sst.shape
+        field = mx.Field(sst.numpy(), ("time", "lat", "lon"), coords, name="sst")
+        out_path = os.path.join(work, "detect.zarr")
+        start()
+        timings = {}
+        t0 = time.perf_counter()
+        out = mx.preprocess_data_streamed(field, out_path, memory_budget_mb=budget_mb, compressor=None, device="cuda",
+                                          timings=timings, **DETECT_CONFIG2)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches["config 7"] = {k: fn.launch_count for k, fn in kernels.items()}
+        want = refs.pop("config 2")
+        for key in ("dat_anomaly", "extreme_events", "thresholds", "mask"):
+            got = np.asarray(out[key].values)
+            if not same_bits(got, want[key]):
+                raise AssertionError(f"config 7: {key} differs from config 2's in-memory detect")
+        del field, out, want, got
+        print(f"config 7 (streamed config 2 detect) {T} x {ny} x {nx}: == config 2's in-memory detect (dat_anomaly, "
+              f"extreme_events, thresholds, mask bit-identical); wall {wall:.3f} s, {sst.numel() / wall:.4g} "
+              f"gridpoint-days/s; row_block {zarr_lite.open_zarr(out_path).attrs['stream_row_block']}, n_tiles "
+              f"{zarr_lite.open_zarr(out_path).attrs['stream_n_tiles']}; {store_bytes(out_path) / 1e9:.3f} GB written; "
+              f"peak {peak} bytes ({peak / 2**30:.2f} GiB); wall split (s): {json.dumps({k: round(v, 3) for k, v in timings.items()})}")
+        del sst
+        shutil.rmtree(out_path, ignore_errors=True)
+
+        # ---- config 8: streamed tracking ------------------------------------
+        c4 = refs.pop("config 4")
+        src = os.path.join(work, "extremes.zarr")
+        t0 = time.perf_counter()
+        zarr_lite.to_zarr(mx.Field(c4.pop("extremes"), ("time", "lat", "lon"), coords, name="extreme_events"), src,
+                          chunks={"time": 64})
+        t_store = time.perf_counter() - t0
+        mask = mx.Field(c4["mask"], ("lat", "lon"), {"lat": coords["lat"], "lon": coords["lon"]}, name="mask")
+        start()
+        t0 = time.perf_counter()
+        tr = mx.tracker(zarr_lite.open_zarr(src, lazy=True)["extreme_events"], mask, device="cuda", quiet=True,
+                        **track_kwargs(ny, merge=True))
+        events, merges = tr.run_streamed(os.path.join(work, "events.zarr"), memory_budget_mb=budget_mb,
+                                         return_merges=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches["config 8"] = {k: fn.launch_count for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        ev_want, mg_want = c4["events"], c4["merges"]
+        if not equal_blocks(events["ID_field"].data, ev_want["ID_field"]):
+            raise AssertionError("config 8: ID_field differs from config 4's in-memory run")
+        for key in ("global_ID", "presence", "merge_ledger", "time_start", "time_end"):
+            if not np.array_equal(np.asarray(events[key].values), ev_want[key]):
+                raise AssertionError(f"config 8: {key} differs from config 4's in-memory run")
+        for key, want in mg_want.items():
+            if not np.array_equal(merges[key].values, want):
+                raise AssertionError(f"config 8: merges {key} differ from config 4's in-memory run")
+        diff = {}
+        for key in ("area", "centroid"):
+            a, b = np.asarray(events[key].values, np.float64), ev_want[key].astype(np.float64)
+            np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=f"config 8: {key} NaN pattern")
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5, err_msg=f"config 8: {key}")
+            diff[key] = float(np.nanmax(np.abs(a - b))) if np.isfinite(a).any() else 0.0
+        for key in ("N_events_final", "total_merges", "N_objects_prefiltered", "N_objects_filtered"):
+            if events.attrs[key] != c4["attrs"][key]:
+                raise AssertionError(f"config 8: {key} {events.attrs[key]} vs {c4['attrs'][key]} in memory")
+        t_check = time.perf_counter() - t0
+        if peak > 2 * budget_mb * 2**20:
+            raise AssertionError(f"config 8: peak {peak} bytes is over twice memory_budget_mb={budget_mb}")
+        walls = {k: tr.stage_walls[k] for k in ("preprocess", "march", "rename")}
+        print(f"config 8 (streamed config 4 track) {T} x {ny} x {nx}: == config 4's in-memory run (ID_field, global_ID, "
+              f"presence, merge_ledger, time_start/end, merge records, N_* and total_merges bit-identical; max |diff| area "
+              f"{diff['area']}, centroid {diff['centroid']}); N_events_final {events.attrs['N_events_final']}, "
+              f"total_merges {events.attrs['total_merges']}; track wall {wall:.3f} s (in memory {c4['wall']:.3f} s), "
+              f"{T * ny * nx / wall:.4g} gridpoint-days/s; pass walls (s) {json.dumps(walls)}; "
+              f"{tr.dispatch_counts['march_block']} blocks of {tr.stream_block_T} days; peak {peak} bytes "
+              f"({peak / 2**30:.2f} GiB, budget {budget_mb} MiB; in memory {c4['peak'] / 2**30:.2f} GiB); input store "
+              f"written in {t_store:.1f} s, outputs checked in {t_check:.1f} s")
+        print(f"  stage_walls: {json.dumps(tr.stage_walls)}")
+        print(f"  stage_peak_bytes (running max): {json.dumps(tr.stage_peak_bytes)}")
+        print(f"  dispatch_counts: {json.dumps(tr.dispatch_counts)}; ccl iterations {json.dumps(tr.ccl_iterations)}; "
+              f"launch counts {json.dumps(launches['config 8'])}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return launches
 
 
@@ -1393,10 +1579,15 @@ def main() -> int:
 
     # ---- 5. the paths at full size -----------------------------------------
     kernels = {"ccl_step": ccl_step, "pointer_jump": pointer_jump, "graph_step": graph_step}
-    launches = main_paths(mx, 720, 1440, args.seed, kernels, "cuda")
+    launches, refs = main_paths(mx, 720, 1440, args.seed, kernels, "cuda")
     launches.update(mesh_and_regional_paths(mx, args.seed, kernels))
-    # the mesh path labels on graph_step, every gridded path on ccl_step; all jump
+    launches.update(streamed_paths(mx, refs, kernels))
+    del refs
+    # the mesh path labels on graph_step, every gridded tracking path on
+    # ccl_step; all jump. Config 7 is detect alone and labels nothing
     for path, counts in launches.items():
+        if path == "config 7":
+            continue
         for k in ("graph_step" if path == "config 5" else "ccl_step", "pointer_jump"):
             if counts[k] <= 0:
                 raise AssertionError(f"{k}, a kernel of {path}, was never launched there: {counts}")

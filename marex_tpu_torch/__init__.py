@@ -18,15 +18,20 @@ with it (the split/merge march with nearest-cell or centroid partitioning,
 event clustering, per-event area, centroid, presence and merge ledger, and
 the merge records) on global grids, on regional ones (``regional_tracker``)
 and on unstructured triangular meshes (``unstructured_grid=True`` with the
-mesh's ``neighbours`` and ``cell_areas``). Tensors stay on the device they
-were given; numpy inputs move to ``device`` (default ``"cuda"``). The
+mesh's ``neighbours`` and ``cell_areas``). Data larger than memory goes
+through the out-of-core path: zarr stores (``io.zarr_lite``),
+``preprocess_data_streamed`` (latitude-row tiles) and
+``tracker(...).run_streamed`` (time blocks), and the tracker's preprocessing
+checkpoints (``run(checkpoint='save' | 'load' | 'auto')``). Tensors stay on
+the device they were given; numpy inputs move to ``device`` (default
+``"cuda"``); lazy zarr payloads stay on disk until read. The
 connected-component labelling runs on hand-written CUDA kernels
 (``csrc/min_stencil.cu`` on a grid, ``csrc/graph_step.cu`` on a mesh),
 compiled with ``nvcc`` at first use; event clustering uses the host
 union-find of ``csrc/marex_host.cpp``, compiled with ``g++`` at first use.
 """
 
-from .core.field import Coord, Field, FieldSet, as_field, from_reference
+from .core.field import Coord, Field, FieldSet, as_field, concat, from_reference
 from .detect import (
     add_decimal_year,
     compute_normalised_anomaly,
@@ -46,6 +51,7 @@ from .exceptions import (
     TrackingError,
     VisualisationError,
 )
+from .detect_stream import preprocess_data_streamed
 from .track import regional_tracker, tracker
 
 __all__ = [
@@ -53,8 +59,10 @@ __all__ = [
     "FieldSet",
     "Coord",
     "as_field",
+    "concat",
     "from_reference",
     "preprocess_data",
+    "preprocess_data_streamed",
     "compute_normalised_anomaly",
     "identify_extremes",
     "rolling_climatology",

@@ -1,17 +1,20 @@
 """
-The host union-find of event clustering, from the repository's C++ runtime.
+Host routines from the repository's C++ runtime: the union-find of event
+clustering and the LZ4 block decoder of blosc-compressed zarr chunks.
 
 ``csrc/marex_host.cpp`` (shared with ``marex_tpu``, unchanged) is compiled
 with ``g++`` at first use into ``_build/`` (named by a hash of the source and
 flags, so an edited source is rebuilt) and loaded with ``ctypes``. The port
 needs its own loader because importing anything of ``marex_tpu`` imports
-JAX. Only ``marex_union_find`` is bound: the merge march's other host work is
-array code on the tracker's device.
+JAX. Two entry points are bound, ``marex_union_find`` and
+``marex_lz4_decompress``: the merge march's other host work is array code on
+the tracker's device.
 
-:func:`union_find_plain` is the numpy version (``marex_tpu/_native.py``'s
-fallback). Both number components by their smallest node position, so event
-ids do not depend on which one ran; :func:`union_find` takes the library when
-it builds and the numpy version otherwise.
+:func:`union_find_plain` and :func:`lz4_decompress_plain` are the Python
+versions (``marex_tpu/_native.py``'s fallbacks). The union-finds number
+components by their smallest node position, so event ids do not depend on
+which one ran; :func:`union_find` and :func:`lz4_decompress` take the
+library when it builds and the Python version otherwise.
 """
 
 from __future__ import annotations
@@ -64,6 +67,9 @@ def get_lib() -> Optional[ctypes.CDLL]:
     i64p = ctypes.POINTER(ctypes.c_int64)
     lib.marex_union_find.restype = None
     lib.marex_union_find.argtypes = [i64p, i64p, ctypes.c_int64, i64p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32)]
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.marex_lz4_decompress.restype = ctypes.c_int64
+    lib.marex_lz4_decompress.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
     return lib
 
 
@@ -119,3 +125,66 @@ def union_find_plain(edges: np.ndarray, node_ids: np.ndarray) -> np.ndarray:
     roots = np.array([find(i) for i in range(len(node_ids))], dtype=np.int64)
     _, comp = np.unique(roots, return_inverse=True)
     return comp.astype(np.int32).reshape(-1)
+
+
+def lz4_decompress(src: bytes, dst_size: int) -> bytes:
+    """
+    LZ4 block-format decompression (the payload format inside blosc frames,
+    the reference ecosystem's default zarr codec) into at most ``dst_size``
+    bytes: the library's ``marex_lz4_decompress`` when it builds, else
+    :func:`lz4_decompress_plain`. Raises ``ValueError`` on a malformed block.
+    """
+    lib = get_lib()
+    if lib is None:
+        return lz4_decompress_plain(src, dst_size)
+    sbuf = np.frombuffer(src, dtype=np.uint8)
+    dbuf = np.empty(dst_size, dtype=np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    n = lib.marex_lz4_decompress(sbuf.ctypes.data_as(u8p), len(sbuf), dbuf.ctypes.data_as(u8p), dst_size)
+    if n < 0:
+        raise ValueError("malformed LZ4 block")
+    return dbuf[:n].tobytes()
+
+
+def lz4_decompress_plain(src: bytes, dst_size: int) -> bytes:
+    """The pure-Python LZ4 block decoder."""
+    dst = bytearray(dst_size)
+    si, di, n = 0, 0, len(src)
+    while si < n:
+        token = src[si]
+        si += 1
+        lit = token >> 4
+        if lit == 15:
+            while True:
+                x = src[si]
+                si += 1
+                lit += x
+                if x != 255:
+                    break
+        if lit:
+            dst[di : di + lit] = src[si : si + lit]
+            si += lit
+            di += lit
+        if si >= n:
+            break
+        offset = src[si] | (src[si + 1] << 8)
+        si += 2
+        if offset == 0 or offset > di:
+            raise ValueError("malformed LZ4 block")
+        mlen = token & 15
+        if mlen == 15:
+            while True:
+                x = src[si]
+                si += 1
+                mlen += x
+                if x != 255:
+                    break
+        mlen += 4
+        if offset >= mlen:
+            dst[di : di + mlen] = dst[di - offset : di - offset + mlen]
+            di += mlen
+        else:  # an overlapping match repeats the last ``offset`` bytes
+            for _ in range(mlen):
+                dst[di] = dst[di - offset]
+                di += 1
+    return bytes(dst[:di])

@@ -3,13 +3,16 @@ Lightweight labeled arrays for marex_tpu_torch.
 
 The port of ``marex_tpu/core/field.py``: a thin :class:`Field`
 (DataArray-analogue) and :class:`FieldSet` (Dataset-analogue) whose payloads
-are ``numpy`` arrays or ``torch`` tensors. A tensor payload keeps its device;
-``.values`` always returns host numpy. :func:`from_reference` carries a
-``marex_tpu`` Field/FieldSet across (duck-typed, so this module never imports
-``marex_tpu`` or ``jax``).
+are ``numpy`` arrays, ``torch`` tensors, or lazy zarr arrays
+(:class:`~marex_tpu_torch.io.zarr_lite.LazyZarrArray`, which read only the
+chunks a slice touches). A tensor payload keeps its device, a lazy one stays
+on disk until it is sliced or materialised; ``.values`` always returns host
+numpy. :func:`from_reference` carries a ``marex_tpu`` Field/FieldSet across
+(duck-typed, so this module never imports ``marex_tpu`` or ``jax``).
 
 Design rules:
-  * no lazy graphs — compute runs eagerly through the ops modules;
+  * no lazy graphs — compute runs eagerly through the ops modules (a lazy
+    zarr payload is storage, not a graph);
   * ``.persist()/.compute()/.chunk()`` exist as no-op compatibility shims so
     scripts written against the reference API keep working;
   * coords are 1-D (or small N-D) host numpy arrays; bulk data may live on
@@ -205,9 +208,11 @@ class Field:
         return self
 
     def compute(self) -> "Field":
-        if _is_torch(self.data):
-            return self._replace(data=_asnumpy(self.data))
-        return self
+        """The Field with a host numpy payload (a tensor copied back, a lazy
+        zarr payload read)."""
+        if isinstance(self.data, np.ndarray):
+            return self
+        return self._replace(data=_asnumpy(self.data))
 
     def load(self) -> "Field":
         return self.compute()
@@ -328,11 +333,35 @@ class Field:
 
 
 def on_device(data: ArrayLike, device: Union[str, torch.device]) -> torch.Tensor:
-    """``data`` as a tensor: a tensor keeps its own device, anything else is
-    copied to ``device``."""
+    """``data`` as a tensor: a tensor keeps its own device, anything else
+    (numpy, or a lazy zarr payload, which is read whole here) is copied to
+    ``device``."""
     if isinstance(data, torch.Tensor):
         return data
     return torch.tensor(np.asarray(data), device=device)
+
+
+def concat(fields: Sequence[Field], dim: str) -> Field:
+    """
+    Concatenate fields along ``dim`` (created as a new leading dim when the
+    fields lack it), with the first field's other coords, name and attrs.
+    Tensor payloads are joined on their device when all are tensors;
+    anything else is joined on the host.
+    """
+    if not fields:
+        raise ValueError("concat needs at least one field")
+    first = fields[0]
+    new_dim = dim not in first.dims
+    ax = 0 if new_dim else first.dims.index(dim)
+    if all(_is_torch(f.data) for f in fields):
+        parts = [f.data.unsqueeze(0) if new_dim else f.data for f in fields]
+        data = torch.cat(parts, dim=ax)
+    else:
+        parts = [_asnumpy(f.data)[None] if new_dim else _asnumpy(f.data) for f in fields]
+        data = np.concatenate(parts, axis=ax)
+    dims = ((dim,) + first.dims) if new_dim else first.dims
+    coords = {k: c for k, c in first.coords.items() if dim not in c.dims}
+    return Field(data, dims, coords, first.name, first.attrs)
 
 
 class FieldSet:

@@ -21,14 +21,23 @@ consolidation chains, new ids, the ledger) is host Python on small tables,
 and every full-field or per-slice array operation runs on the tracker's
 device.
 
-``mesh`` and ``checkpoint`` raise ``NotImplementedError`` naming the
-ROADMAP item that brings them. Device placement is explicit: a torch tensor
-input keeps its device; numpy or ``Field`` payloads move to ``device``.
+Preprocessing checkpoints (``checkpoint='save'``, ``'load'``, ``'auto'``)
+persist the filtered field and its statistics as a zarr store and an
+``.npz`` under ``temp_dir``. :meth:`tracker.run_streamed` tracks a field
+larger than device memory in time blocks (``track_stream.py``), on the same
+march through a windowed label store. ``mesh`` raises
+``NotImplementedError`` naming the ROADMAP item that brings it. Device
+placement is explicit: a torch tensor input keeps its device; numpy or
+``Field`` payloads move to ``device``; a lazy zarr payload stays on disk
+until ``run()`` reads it whole or ``run_streamed()`` a block at a time.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
+import os
+import tempfile
 import time
 import weakref
 from contextlib import contextmanager
@@ -50,10 +59,17 @@ logger = get_logger(__name__)
 
 MAX_PARENTS = 10  # parent capacity per merge event
 
-_NOT_PORTED = {
-    "mesh": "ROADMAP queue 1, item 11 (multi-GPU)",
-    "checkpoint": "ROADMAP queue 1, item 3 (tracker checkpoints, with io/zarr_lite from item 10)",
-}
+_NOT_PORTED = {"mesh": "ROADMAP queue 1, item 11 (multi-GPU)"}
+
+# the scalar statistics of preprocessing, in the order of ``object_stats``
+_STATS_KEYS = (
+    "total_area_IDed",
+    "N_objects_prefiltered",
+    "N_objects_filtered",
+    "area_threshold",
+    "accepted_area_fraction",
+    "preprocessed_area_fraction",
+)
 
 
 def _is_bool(data: Any) -> bool:
@@ -67,9 +83,14 @@ def _dtype_name(field: Field) -> str:
 
 class _SliceStore:
     """
-    The merge march's label field on the device. A rewritten slice is
+    The merge march's label field, whole on the device. A rewritten slice is
     written into the field at once (the reference keeps overrides because
     its arrays are immutable), so ``flush`` only hands the field back.
+
+    The march reads and writes only slices t-2, t-1 and t at step t, and
+    slice t-1 is final once step t ends; it asks the store for what it needs
+    through these methods, so a store that holds only a window of slices
+    (``track_stream._WindowStore``) runs the same march.
     """
 
     def __init__(self, labels: torch.Tensor):
@@ -79,11 +100,26 @@ class _SliceStore:
     def T(self) -> int:
         return self.dev.shape[0]
 
+    def initial_pairs(self, tr: "tracker") -> List[Optional[np.ndarray]]:
+        """The pair cache at the start: every consecutive pair's overlaps."""
+        return tr._per_slice_pairs_device(self.dev)
+
+    def first_new_id(self, table: "ObjectTable") -> int:
+        """The first id the march may allocate: above every object's."""
+        return int(table.max_id()) + 1
+
+    def begin_step(self, t: int) -> None:
+        """Called before step t (the whole field is always here)."""
+
     def get_dev(self, t: int) -> torch.Tensor:
         return self.dev[t]
 
     def set_dev(self, t: int, sl: torch.Tensor) -> None:
         self.dev[t] = sl
+
+    def final_pairs(self, tr: "tracker") -> List[np.ndarray]:
+        """Every consecutive pair's overlaps on the final labels."""
+        return tr._per_slice_pairs_device(self.dev)
 
     def flush(self) -> torch.Tensor:
         return self.dev
@@ -158,12 +194,8 @@ class tracker:
         merge_ledger_mode: str = "reference",
         device: Union[str, torch.device] = "cuda",
     ) -> None:
-        for name, value in (
-            ("mesh", mesh is not None),
-            ("checkpoint", bool(checkpoint)),
-        ):
-            if value:
-                raise NotImplementedError(f"{name} is not ported to marex_tpu_torch yet: {_NOT_PORTED[name]}")
+        if mesh is not None:
+            raise NotImplementedError(f"mesh is not ported to marex_tpu_torch yet: {_NOT_PORTED['mesh']}")
         if verbose is not None or quiet is not None:
             configure_logging(verbose=verbose, quiet=quiet)
         if merge_ledger_mode not in ("reference", "siblings"):
@@ -185,10 +217,17 @@ class tracker:
 
         self.data_bin = as_field(data_bin)
         self.mask = as_field(mask)
+        if not isinstance(self.mask.data, (torch.Tensor, np.ndarray)):
+            self.mask = self.mask.compute()  # a lazy zarr mask: one slice, read now
         log_array_info(logger, self.data_bin, "Binary input data")
 
         self.regional_mode = bool(regional_mode)
         self.unstructured_grid = bool(unstructured_grid)
+        self.temp_dir = temp_dir
+        self.max_iteration = max_iteration
+        self.checkpoint = checkpoint
+        self.debug = debug
+        self.mesh = mesh
         self.allow_merging = allow_merging
         self.nn_partitioning = nn_partitioning
         self.coordinate_units = coordinate_units
@@ -237,12 +276,16 @@ class tracker:
         self.lon = np.asarray(self.data_bin.coords[self.xcoord].values, dtype=np.float64)
         self.data_attrs = dict(self.data_bin.attrs)
 
-        self._validate_inputs(neighbours, cell_areas, grid_resolution)
+        self._validate_inputs(neighbours, cell_areas, grid_resolution, temp_dir)
 
-        # payloads on their device: the binary field, and the mask beside it
-        self.data_bin = self.data_bin._replace(data=on_device(self.data_bin.data, device).contiguous())
-        self.device = self.data_bin.data.device
-        self.mask_dev = on_device(self.mask.data, self.device).to(self.device)
+        # payloads on their device: the binary field, and the mask beside it.
+        # A lazy zarr payload stays on disk: run() reads it whole,
+        # run_streamed() a block at a time
+        if isinstance(self.data_bin.data, (torch.Tensor, np.ndarray)):
+            self.data_bin = self.data_bin._replace(data=on_device(self.data_bin.data, device).contiguous())
+            device = self.data_bin.data.device
+        self.mask_dev = on_device(self.mask.data, device).to(device)
+        self.device = self.mask_dev.device
         self.stage_walls: Dict[str, float] = {}
         #: torch.cuda.max_memory_allocated() read at the end of each stage that
         #: ran on CUDA: a running maximum, so the first stage to show the final
@@ -367,7 +410,9 @@ class tracker:
                 },
             )
 
-    def _validate_inputs(self, neighbours: Any, cell_areas: Any, grid_resolution: Optional[float]) -> None:
+    def _validate_inputs(
+        self, neighbours: Any, cell_areas: Any, grid_resolution: Optional[float], temp_dir: Optional[str]
+    ) -> None:
         if self.regional_mode and self.unstructured_grid:
             raise NotImplementedError("regional_mode is not yet implemented for unstructured grids")
 
@@ -529,14 +574,13 @@ class tracker:
     def run(self, return_merges: bool = False, checkpoint: Optional[str] = None):
         """Run preprocessing, tracking and statistics; returns the events
         FieldSet, or ``(events, merges)`` with ``return_merges`` when
-        merging is on."""
-        if checkpoint:
-            raise NotImplementedError(f"checkpoint is not ported to marex_tpu_torch yet: {_NOT_PORTED['checkpoint']}")
+        merging is on. ``checkpoint`` ('save', 'load' or 'auto') overrides
+        the tracker's own (:meth:`run_preprocess`)."""
         logger.info("Starting complete tracking pipeline")
         log_memory_usage(logger, "Pipeline start", logging.DEBUG)
 
         with log_timing(logger, "Data preprocessing", log_memory=True):
-            data_bin_preprocessed, object_stats = self.run_preprocess()
+            data_bin_preprocessed, object_stats = self.run_preprocess(checkpoint=checkpoint)
 
         with log_timing(logger, "Object identification and tracking", log_memory=True):
             events_ds, merges_ds, N_events_final = self.run_tracking(data_bin_preprocessed)
@@ -549,6 +593,29 @@ class tracker:
         if self.allow_merging and return_merges:
             return events_ds, merges_ds
         return events_ds
+
+    def run_streamed(
+        self,
+        out_path: str,
+        memory_budget_mb: int = 4096,
+        block_T: Optional[int] = None,
+        return_merges: bool = False,
+    ):
+        """
+        Track a field larger than device memory: the whole pipeline
+        (morphology, area filter, split/merge march, event clustering and
+        statistics) streams over time blocks, and the outputs are written to
+        the zarr store ``out_path`` as they are made (``track_stream.py``).
+        ``data_bin`` may be a lazy zarr payload. Equal to :meth:`run`;
+        merging runs only (``allow_merging=True``). Returns the events
+        FieldSet backed by the store, or ``(events, merges)`` with
+        ``return_merges``.
+        """
+        from .track_stream import run_tracking_streamed
+
+        return run_tracking_streamed(
+            self, out_path, memory_budget_mb=memory_budget_mb, block_T=block_T, return_merges=return_merges
+        )
 
     @contextmanager
     def _stage_ctx(self, name: str):
@@ -698,9 +765,76 @@ class tracker:
             filtered = _label.select_labels(labels, torch.from_numpy(keep_tl).to(labels.device))
         return filtered, area_threshold, object_areas, int(len(object_areas)), int(np.sum(object_areas > area_threshold))
 
-    def run_preprocess(self):
-        """Morphological fill and area filtering; returns ``(filtered, object_stats)``."""
-        data = self.data_bin.data
+    def _checkpoint_paths(self) -> Tuple[str, str]:
+        """The checkpoint's store and statistics files under ``temp_dir`` (the
+        system temp dir without one), named by a fingerprint of the data
+        shape and the preprocessing parameters: configurations that share a
+        directory do not overwrite each other, and 'save' then 'load' of one
+        configuration meet. The names are ``marex_tpu``'s, so either package
+        loads the other's checkpoint."""
+        base = self.temp_dir or tempfile.gettempdir()
+        key = (
+            f"{tuple(self.data_bin.shape)}|{self.R_fill}|{self.T_fill}|"
+            f"{self.area_filter_quartile}|{self.area_filter_absolute}|"
+            f"{self.unstructured_grid}|{self.regional_mode}"
+        )
+        tag = hashlib.sha1(key.encode()).hexdigest()[:10]
+        return (
+            os.path.join(base, f"marex_tpu_checkpoint_{tag}_proc_bin.zarr"),
+            os.path.join(base, f"marex_tpu_checkpoint_{tag}_stats.npz"),
+        )
+
+    def _save_checkpoint(self, data_filtered: torch.Tensor, object_stats: Tuple) -> None:
+        """Persist the filtered field (a zarr store) and its statistics (npz)."""
+        from .io.zarr_lite import to_zarr
+
+        bin_path, stats_path = self._checkpoint_paths()
+        os.makedirs(os.path.dirname(bin_path), exist_ok=True)
+        dims = (self.timedim,) + self._spatial_dims()
+        f = Field(data_filtered, dims, self.data_bin.coords, name="data_bin_preproc")
+        to_zarr(FieldSet({"data_bin_preproc": f}), bin_path)
+        np.savez(stats_path, **dict(zip(_STATS_KEYS, object_stats)))
+        logger.info(f"Saved preprocessing checkpoint to {bin_path}")
+
+    def _load_checkpoint(self):
+        """The checkpoint of this configuration: ``(filtered, object_stats)``,
+        the field on the tracker's device."""
+        from .io.zarr_lite import open_zarr
+
+        bin_path, stats_path = self._checkpoint_paths()
+        if not (os.path.exists(bin_path) and os.path.exists(stats_path)):
+            raise TrackingError(
+                "No preprocessing checkpoint found for this configuration",
+                details=f"Expected checkpoint files at {bin_path} and {stats_path}",
+                suggestions=[
+                    "Run once with checkpoint='save' (or 'auto') to create the checkpoint",
+                    "Check that temp_dir matches the directory used when saving",
+                    "Checkpoint paths embed the tracker configuration - parameters must match the saving run",
+                ],
+                context={"bin_path": bin_path, "stats_path": stats_path},
+            )
+        values = np.asarray(open_zarr(bin_path)["data_bin_preproc"].values, dtype=bool)
+        data = torch.from_numpy(values).to(self.device)
+        with np.load(stats_path) as npz:
+            stats = tuple(int(npz[k]) if k.startswith("N_") else float(npz[k]) for k in _STATS_KEYS)
+        logger.info(f"Loaded preprocessing checkpoint from {bin_path}")
+        return data, stats
+
+    def run_preprocess(self, checkpoint: Optional[str] = None):
+        """
+        Morphological fill and area filtering; returns ``(filtered,
+        object_stats)``. ``checkpoint`` (default: the tracker's own) 'save'
+        writes the result under ``temp_dir``, 'load' reads it instead of
+        computing it, and 'auto' loads this configuration's checkpoint when
+        there is one and otherwise computes and saves it.
+        """
+        checkpoint = checkpoint or self.checkpoint
+        if checkpoint == "load":
+            return self._load_checkpoint()
+        if checkpoint == "auto" and all(os.path.exists(p) for p in self._checkpoint_paths()):
+            return self._load_checkpoint()
+
+        data = on_device(self.data_bin.data, self.device).contiguous()
         raw_area = self.compute_area(data)
 
         logger.info(f"Filling spatial holes with radius R_fill={self.R_fill}")
@@ -734,6 +868,8 @@ class tracker:
             accepted_area_fraction,
             preprocessed_area_fraction,
         )
+        if checkpoint and ("save" in str(checkpoint) or checkpoint == "auto"):
+            self._save_checkpoint(data_filtered, object_stats)
         return data_filtered, object_stats
 
     # ------------------------------------------------------------------
@@ -806,11 +942,13 @@ class tracker:
         logger.info("Finished clustering and renaming objects into coherent consistent events")
         return events_ds, merge_events, N_events
 
-    def _compute_props_for_labels(self, labels: torch.Tensor, counts: np.ndarray, offsets: np.ndarray) -> ObjectTable:
+    def _compute_props_for_labels(
+        self, labels: torch.Tensor, counts: np.ndarray, offsets: np.ndarray, table: Optional[ObjectTable] = None
+    ) -> ObjectTable:
         """The object table of per-slice dense labels: object k of slice t
-        gets id offsets[t] + k."""
+        gets id offsets[t] + k (entered in ``table`` when given)."""
         L = int(counts.max()) if counts.size else 0
-        table = ObjectTable()
+        table = ObjectTable() if table is None else table
         if L == 0:
             return table
         if self.unstructured_grid:
@@ -861,10 +999,6 @@ class tracker:
     def _cell_weights(self) -> Optional[torch.Tensor]:
         """What an overlap sums: cell areas on a mesh, cell counts on a grid."""
         return self._cell_area_dev if self.unstructured_grid else None
-
-    def _all_overlaps(self, labels: torch.Tensor) -> np.ndarray:
-        """Overlap pairs of all consecutive slices, as one sorted list."""
-        return _merge_pair_lists(self._per_slice_pairs_device(labels))
 
     def _consolidate_slice_device(self, store: _SliceStore, table: ObjectTable, back: np.ndarray, t_slice: int,
                                   invalidate) -> None:
@@ -933,13 +1067,13 @@ class tracker:
         """
         T = store.T
         with self._stage_ctx("march/pairs"):
-            pair_cache: List[Optional[np.ndarray]] = self._per_slice_pairs_device(store.dev)
+            pair_cache: List[Optional[np.ndarray]] = store.initial_pairs(self)
 
         merge_times: List[Any] = []
         merge_child_ids: List[np.ndarray] = []
         merge_parent_ids: List[np.ndarray] = []
         merge_areas: List[np.ndarray] = []
-        next_new_id = int(table.max_id()) + 1
+        next_new_id = store.first_new_id(table)
         time_values = np.asarray(self.data_bin.coords[self.timecoord].values)
 
         def get_pairs(t: int) -> np.ndarray:
@@ -959,6 +1093,7 @@ class tracker:
                 self._consolidate_slice_device(store, table, back, t_slice, invalidate)
 
         for t in range(T):
+            store.begin_step(t)
             # -- consolidation of t-1 using t-2 --------------------------
             if t > 1:
                 back = self._enforce_threshold(get_pairs(t - 2), table)
@@ -1020,9 +1155,9 @@ class tracker:
             if len(back):
                 consolidate(back, T - 1)
 
-        labels = store.flush()
         with self._stage_ctx("march/overlaps"):
-            overlap_list = self._enforce_threshold(self._all_overlaps(labels), table)
+            overlap_list = self._enforce_threshold(_merge_pair_lists(store.final_pairs(self)), table)
+        labels = store.flush()
 
         if len(overlap_list):
             uc, cc = np.unique(overlap_list[:, 1], return_counts=True)
@@ -1106,6 +1241,41 @@ class tracker:
         the device: the (time, ID) table of original ids, the full-field
         remap to event ids (over the old ids, in place), and the per-time
         event statistics. Returns ``(events_ds, N_events)``."""
+        with self._stage_ctx("rename/max"):
+            labels_max = int(labels.max())
+        lookup, N, max_id = self._event_lookup(table, overlap_list, labels_max)
+        lookup_dev = torch.from_numpy(lookup).to(labels.device)
+
+        T = labels.shape[0]
+        # the (time, ID) table first, from the old ids; then the remap over them
+        with self._stage_ctx("rename/gid"):
+            global_id = _props.event_global_id_lookup(labels, lookup_dev, N)
+        with self._stage_ctx("rename/remap"):
+            new_field = _label.remap_labels(lookup_dev, labels)
+        del labels
+
+        presence = global_id > 0
+        time_vals = np.asarray(self.data_bin.coords[self.timecoord].values)
+        first_idx = torch.argmax(presence.byte(), dim=0).cpu().numpy()
+        last_idx = T - 1 - torch.argmax(presence.flip(0).byte(), dim=0).cpu().numpy()
+
+        with self._stage_ctx("rename/stats"):
+            areas, clat, clon = self._event_stats(new_field, N)
+            clat, clon = self._centroid_units(clat, clon)
+
+        merges_by_t = _merges_by_time(merge_events, time_vals)
+        ledger = self._ledger_block(merges_by_t, lookup, max_id, N, 0, T)
+        events_ds = self._events_fieldset(
+            new_field, global_id[:, 1:], areas[:, 1:], torch.stack([clat[:, 1:], clon[:, 1:]], dim=0),
+            presence[:, 1:], time_vals[first_idx][1:], time_vals[last_idx][1:], ledger[:, 1:], N,
+        )
+        return events_ds, N
+
+    def _event_lookup(self, table: ObjectTable, overlap_list: np.ndarray, labels_max: int):
+        """Cluster the overlap graph into events (host union-find). Returns
+        the lookup of each object id's event id (int32, 0 = none; ids up to
+        the largest of ``labels_max`` and the graph's), the event count, and
+        that largest id."""
         field_ids = table.ids()
         if len(overlap_list):
             overlap_ids = np.unique(overlap_list.astype(np.int64))
@@ -1119,85 +1289,66 @@ class tracker:
         n_events = int(comp.max()) + 1 if len(comp) else 0
         logger.info(f"Identified {n_events} connected components (events)")
 
-        with self._stage_ctx("rename/max"):
-            max_id = max(int(labels.max()), int(all_ids.max()) if len(all_ids) else 0)
+        max_id = max(labels_max, int(all_ids.max()) if len(all_ids) else 0)
         lookup = np.zeros(max_id + 2, dtype=np.int32)
         lookup[all_ids] = comp.astype(np.int32) + 1
-        lookup_dev = torch.from_numpy(lookup).to(labels.device)
+        return lookup, n_events, max_id
 
-        T = labels.shape[0]
-        N = n_events
-        # the (time, ID) table first, from the old ids; then the remap over them
-        with self._stage_ctx("rename/gid"):
-            global_id = _props.event_global_id_lookup(labels, lookup_dev, N)
-        with self._stage_ctx("rename/remap"):
-            new_field = _label.remap_labels(lookup_dev, labels)
-        del labels
-
-        presence = global_id > 0
-        time_vals = np.asarray(self.data_bin.coords[self.timecoord].values)
-        first_idx = torch.argmax(presence.byte(), dim=0).cpu().numpy()
-        last_idx = T - 1 - torch.argmax(presence.flip(0).byte(), dim=0).cpu().numpy()
-        time_start = time_vals[first_idx]
-        time_end = time_vals[last_idx]
-
-        with self._stage_ctx("rename/stats"):
-            areas, clat, clon = self._event_stats(new_field, N)
-
-        # merge ledger (time, ID, sibling_ID): 'reference' writes each merging
-        # parent's own event id across its sibling slots (a participation
-        # marker; the genealogy is in merges_ds); 'siblings' the full list of
-        # merge partners
-        have_merges = "parent_IDs" in merge_events.data_vars and merge_events["parent_IDs"].shape[0] > 0
-        sibling = int(merge_events["parent_IDs"].shape[1]) if have_merges else MAX_PARENTS
-        ledger = np.full((T, N + 1, sibling), -1, dtype=np.int32)
-        if have_merges:
-            pids = merge_events["parent_IDs"].values
-            mtimes = merge_events["merge_time"].values
-            time_to_idx = {v: i for i, v in enumerate(time_vals)}
-            for m in range(pids.shape[0]):
-                tixd = time_to_idx.get(mtimes[m])
-                if tixd is None:
-                    continue
+    def _ledger_block(self, merges_by_t, lookup: np.ndarray, max_id: int, n_events: int, t0: int, t1: int) -> np.ndarray:
+        """
+        Rows t0..t1-1 of the merge ledger (time, ID, sibling_ID): (t1 - t0,
+        n_events + 1, sibling) int32, -1 filled, column 0 unused.
+        'reference' writes each merging parent's own event id across its
+        sibling slots (a participation marker; the genealogy is in the merge
+        records); 'siblings' the full list of merge partners.
+        """
+        pids, rows_by_t, sibling = merges_by_t
+        ledger = np.full((t1 - t0, n_events + 1, sibling), -1, dtype=np.int32)
+        for tixd in range(t0, t1):
+            for m in rows_by_t.get(tixd, ()):
                 parents_old = pids[m][pids[m] > 0]
                 parents_new = lookup[np.clip(parents_old, 0, max_id + 1)]
                 parents_new = parents_new[parents_new > 0]
                 if self.merge_ledger_mode == "reference":
                     for pn in parents_new:
-                        ledger[tixd, pn, :] = pn
+                        ledger[tixd - t0, pn, :] = pn
                 else:
                     for pn in parents_new:
                         k = min(len(parents_new), sibling)
-                        ledger[tixd, pn, :k] = parents_new[:k]
+                        ledger[tixd - t0, pn, :k] = parents_new[:k]
+        return ledger
 
+    def _events_fieldset(self, id_field, global_id, area, centroid, presence, time_start, time_end, ledger,
+                         n_events: int) -> FieldSet:
+        """The events FieldSet from its payloads (tensors, host arrays or lazy
+        zarr arrays), every per-event table without the background column."""
         tdims = (self.timedim,)
-        sdims = self._spatial_dims()
         coords = dict(self.data_bin.coords)
-        id_coord = Coord("ID", np.arange(1, N + 1, dtype=np.int32))
-        events_ds = FieldSet(
+        id_coord = Coord("ID", np.arange(1, n_events + 1, dtype=np.int32))
+        id_c = {**coords, "ID": id_coord}
+        return FieldSet(
             {
-                "ID_field": Field(new_field, tdims + sdims, coords, name="ID_field"),
-                "global_ID": Field(global_id[:, 1:], (self.timedim, "ID"), {**coords, "ID": id_coord}, name="global_ID"),
-                "area": Field(areas[:, 1:], (self.timedim, "ID"), {**coords, "ID": id_coord}, name="area"),
+                "ID_field": Field(id_field, tdims + self._spatial_dims(), coords, name="ID_field"),
+                "global_ID": Field(global_id, (self.timedim, "ID"), id_c, name="global_ID"),
+                "area": Field(area, (self.timedim, "ID"), id_c, name="area"),
                 "centroid": Field(
-                    torch.stack([clat[:, 1:], clon[:, 1:]], dim=0),
+                    centroid,
                     ("component", self.timedim, "ID"),
-                    {**coords, "ID": id_coord, "component": Coord("component", np.array([0, 1]))},
+                    {**id_c, "component": Coord("component", np.array([0, 1]))},
                     name="centroid",
                 ),
-                "presence": Field(presence[:, 1:], (self.timedim, "ID"), {**coords, "ID": id_coord}, name="presence"),
-                "time_start": Field(time_start[1:], ("ID",), {"ID": id_coord}, name="time_start"),
-                "time_end": Field(time_end[1:], ("ID",), {"ID": id_coord}, name="time_end"),
+                "presence": Field(presence, (self.timedim, "ID"), id_c, name="presence"),
+                "time_start": Field(time_start, ("ID",), {"ID": id_coord}, name="time_start"),
+                "time_end": Field(time_end, ("ID",), {"ID": id_coord}, name="time_end"),
                 "merge_ledger": Field(
-                    ledger[:, 1:, :],
+                    ledger,
                     (self.timedim, "ID", "sibling_ID"),
-                    {**coords, "ID": id_coord, "sibling_ID": Coord("sibling_ID", np.arange(sibling))},
+                    {**id_c, "sibling_ID": Coord("sibling_ID", np.arange(ledger.shape[-1]))},
                     name="merge_ledger",
                 ),
             },
             attrs={},
         )
-        return events_ds, N
 
     def _event_stats(self, event_field: torch.Tensor, n_events: int):
         """Physical areas and area-weighted (lat, lon) centroids per (time,
@@ -1276,28 +1427,27 @@ class tracker:
         return self._remap_coordinates(events_ds)
 
     def _remap_coordinates(self, events_ds: FieldSet) -> FieldSet:
-        """Restore the original coordinate values (units and ranges), and
-        express centroids in them."""
+        """Restore the original coordinate values (units and ranges); the
+        centroids are already in them (:meth:`_centroid_units`)."""
         ydims = events_ds.coords[self.ycoord].dims if self.ycoord in events_ds.coords else (self.ydim,)
         xdims = events_ds.coords[self.xcoord].dims if self.xcoord in events_ds.coords else (self.xdim,)
         events_ds.coords[self.ycoord] = Coord(ydims, self.lat_init)
         events_ds.coords[self.xcoord] = Coord(xdims, self.lon_init)
-
-        if "centroid" in events_ds.data_vars:
-            f = events_ds["centroid"]
-            clat, clon = f.data[0], f.data[1]
-            lon_min = float(np.min(self.lon_init))
-            lon_max = float(np.max(self.lon_init))
-            if self.coordinate_units == "radians":
-                clat = clat * np.pi / 180.0
-                clon = clon * np.pi / 180.0
-                if lon_min >= 0 and lon_max > np.pi:
-                    clon = torch.where(clon < 0, clon + 2 * np.pi, clon)
-            elif lon_min >= 0 and lon_max > 180:
-                clon = torch.where(clon < 0, clon + 360, clon)
-            cent = torch.stack([clat, clon], dim=0).float()
-            events_ds["centroid"] = Field(cent, f.dims, f.coords, name="centroid")
         return events_ds
+
+    def _centroid_units(self, clat: torch.Tensor, clon: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Centroids (degrees) in the input's units, longitudes in its range
+        (shifted positive when its longitudes run 0..360 or 0..2 pi)."""
+        lon_min = float(np.min(self.lon_init))
+        lon_max = float(np.max(self.lon_init))
+        if self.coordinate_units == "radians":
+            clat = clat * np.pi / 180.0
+            clon = clon * np.pi / 180.0
+            if lon_min >= 0 and lon_max > np.pi:
+                clon = torch.where(clon < 0, clon + 2 * np.pi, clon)
+        elif lon_min >= 0 and lon_max > 180:
+            clon = torch.where(clon < 0, clon + 360, clon)
+        return clat.float(), clon.float()
 
 
 def _merge_pair_lists(lists: List[np.ndarray]) -> np.ndarray:
@@ -1312,6 +1462,22 @@ def _merge_pair_lists(lists: List[np.ndarray]) -> np.ndarray:
     sums = np.zeros(len(uniq))
     np.add.at(sums, inv, allp[:, 2])
     return np.column_stack([uniq // 2**31, uniq % 2**31, sums]).astype(np.float64)
+
+
+def _merges_by_time(merge_events: FieldSet, time_vals: np.ndarray):
+    """The merge records grouped by time index: ``(parent_IDs, {time index:
+    [record, ...]}, sibling slots)`` for :meth:`tracker._ledger_block`."""
+    have_merges = "parent_IDs" in merge_events.data_vars and merge_events["parent_IDs"].shape[0] > 0
+    if not have_merges:
+        return np.zeros((0, MAX_PARENTS), np.int32), {}, MAX_PARENTS
+    pids = merge_events["parent_IDs"].values
+    time_to_idx = {v: i for i, v in enumerate(time_vals)}
+    rows_by_t: Dict[int, List[int]] = {}
+    for m, mt in enumerate(merge_events["merge_time"].values):
+        tixd = time_to_idx.get(mt)
+        if tixd is not None:
+            rows_by_t.setdefault(tixd, []).append(m)
+    return pids, rows_by_t, int(pids.shape[1])
 
 
 def _build_merge_events(

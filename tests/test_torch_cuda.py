@@ -1,7 +1,9 @@
 """The port's CUDA kernels, its config-1 slice, its merge tracking, its mesh
-tracking and its regional mode on the card: each kernel against its plain
-PyTorch version, and each path on CUDA against the same path on the CPU. Every test needs a CUDA device (and
-``nvcc`` to build the kernels) and skips without one.
+tracking, its regional mode and its streamed paths on the card: each kernel
+against its plain PyTorch version, each path on CUDA against the same path
+on the CPU, and streamed detect and tracking against their in-memory runs.
+Every test needs a CUDA device (and ``nvcc`` to build the kernels) and skips
+without one.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch; ``--noconftest`` keeps out ``tests/conftest.py``,
@@ -366,3 +368,72 @@ def test_regional_tracking_on_cuda_matches_cpu(merge):
     assert g.attrs == c.attrs and g.attrs["N_events_final"] > 0
     if merge:
         assert g.attrs["total_merges"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["grid", "mesh"])
+def test_streamed_tracking_on_cuda_matches_in_memory(tmp_path, grid):
+    """``run_streamed`` on the card, from a lazy zarr store in blocks of 13
+    days, against ``run()`` on the card and against the CPU's streamed run:
+    integer outputs and merge records bit-identical, area and centroid within
+    1e-5."""
+    _need_cuda()
+    from marex_tpu_torch.io import zarr_lite
+
+    if grid == "grid":
+        data = merge_dense_field()
+        T, H, W = data.shape
+        dims, sshape = ("time", "lat", "lon"), (H, W)
+        sc = {"lat": np.linspace(-60, 60, H), "lon": np.linspace(0, 360, W, endpoint=False)}
+        kw = dict(R_fill=2, T_fill=2, area_filter_quartile=0.0, allow_merging=True, nn_partitioning=True,
+                  overlap_threshold=0.3)
+    else:
+        nb, lat, lon = tri_mesh(4096)
+        data = mesh_merge_field(lat, lon, T=40)
+        T = len(data)
+        dims, sshape = ("time", "ncells"), (len(lat),)
+        sc = {"lat": ("ncells", lat), "lon": ("ncells", lon)}
+        kw = dict(R_fill=1, T_fill=2, area_filter_quartile=0.1, allow_merging=True, nn_partitioning=True,
+                  overlap_threshold=0.25, unstructured_grid=True, coordinate_units="degrees", dimensions={"x": "ncells"},
+                  coordinates={"x": "lon", "y": "lat"}, neighbours=nb, cell_areas=np.full(len(lat), 1e3, np.float32))
+    times = np.datetime64("2000-01-01", "ns") + np.arange(T) * np.timedelta64(1, "D")
+    ev = port.Field(data, dims, {"time": times, **sc}, name="extreme_events")
+    mask = port.Field(np.ones(sshape, bool), dims[1:], sc, name="mask")
+    src = str(tmp_path / "extremes.zarr")
+    zarr_lite.to_zarr(ev, src, chunks={"time": 10})
+    runs = {"memory": port.tracker(ev, mask, device="cuda", quiet=True, **kw).run(return_merges=True)}
+    for device in ("cuda", "cpu"):
+        tr = port.tracker(zarr_lite.open_zarr(src, lazy=True)["extreme_events"], mask, device=device,
+                          temp_dir=str(tmp_path / device), quiet=True, **kw)
+        runs[device] = tr.run_streamed(str(tmp_path / f"events_{device}.zarr"), block_T=13, return_merges=True)
+        assert tr.dispatch_counts["march_block"] >= 3 and tr.device.type == device
+    (m_ev, m_mg) = runs["memory"]
+    for other in ("cuda", "cpu"):
+        s_ev, s_mg = runs[other]
+        for name in ("ID_field", "global_ID", "presence", "merge_ledger", "time_start", "time_end"):
+            assert np.array_equal(m_ev[name].values, np.asarray(s_ev[name].values)), (other, name)
+        for name in ("area", "centroid"):
+            np.testing.assert_allclose(m_ev[name].values, np.asarray(s_ev[name].values), rtol=1e-5, atol=1e-5,
+                                       err_msg=f"{other} {name}")
+        for name in ("parent_IDs", "child_IDs", "merge_time", "n_parents", "n_children"):
+            assert np.array_equal(m_mg[name].values, s_mg[name].values), (other, name)
+        assert s_ev.attrs["total_merges"] == m_ev.attrs["total_merges"] > 0
+        assert s_ev.attrs["N_events_final"] == m_ev.attrs["N_events_final"]
+
+
+@pytest.mark.cuda
+def test_streamed_detect_on_cuda_matches_in_memory(tmp_path):
+    """``preprocess_data_streamed`` on the card (tiles uploaded from pinned
+    buffers on a copy stream) against ``preprocess_data`` on the card, bit
+    for bit: config 1's detect and config 2's (shifting baseline, Hobday
+    thresholds with the spatial window across the tile seams)."""
+    _need_cuda()
+    sst = _drive_sst()
+    config2 = dict(method_anomaly="shifting_baseline", method_extreme="hobday_extreme", window_year_baseline=2)
+    for i, kw in enumerate((DETECT_FIXED, config2)):
+        mem = port.preprocess_data(sst, device="cuda", quiet=True, **kw)
+        s = port.preprocess_data_streamed(sst, str(tmp_path / f"out{i}.zarr"), row_block=7, device="cuda", **kw)
+        assert s.attrs["stream_n_tiles"] == 4
+        for name in ("dat_anomaly", "extreme_events", "thresholds", "mask"):
+            a, b = mem[name].values, np.asarray(s[name].values)
+            assert a.dtype == b.dtype and np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), (i, name)

@@ -4,6 +4,8 @@ the area filter (both reference branches: <= 64 and > 64 objects per slice),
 and the 3-D event ids (both reference branches: the fused fixpoint and the
 two-level labelling)."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -182,9 +184,17 @@ def test_fixpoint_raises_when_it_does_not_converge(monkeypatch):
         (dict(checkpoint="save"), "item 3"),
     ],
 )
-def test_unported_tracker_options_name_their_roadmap_item(kw, item):
+def test_unported_tracker_options_name_their_roadmap_item(kw, item, tmp_path):
     ev, mask = bool_fields(_field(FEW), np.ones(FEW[1:3], bool))
     args = dict(R_fill=1, area_filter_absolute=4, allow_merging=False, device="cpu")
+    if item == "item 3":  # checkpoints are ported: a saving run gives the reference's events and its files
+        r = ref.tracker(ev, mask, R_fill=1, area_filter_absolute=4, allow_merging=False, quiet=True).run()
+        tr = port.tracker(from_reference(ev, "cpu"), from_reference(mask, "cpu"), temp_dir=str(tmp_path), quiet=True,
+                          **{**args, **kw})
+        p = tr.run()
+        assert_same(r["ID_field"].values, p["ID_field"].values, "ID_field")
+        assert all(os.path.exists(path) for path in tr._checkpoint_paths())
+        return
     if item is None:  # merging is ported: a bad ledger mode fails alike in both packages
         with pytest.raises(ref.ConfigurationError) as r:
             ref.tracker(ev, mask, R_fill=1, area_filter_absolute=4, **kw)

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 import pandas as pd
+import pytest
 import torch
 
 DETECT_FIXED = dict(
@@ -214,3 +215,15 @@ def assert_extremes_near(ref_anom, ref_thr, port_thr, ref_ext, port_ext, doy_idx
     ok = (np.abs(av - rv) <= near) | ((av >= np.minimum(rv, pv)) & (av <= np.maximum(rv, pv)))
     assert ok.all(), f"{what}: differing cells far from the threshold: {list(zip(av[~ok], rv[~ok], pv[~ok]))[:5]}"
     return n
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's tests, restored after: the small
+    fields here gain nothing from more, and beside the other test workers'
+    threads more only contend (a streamed run took 170 s with 8 threads and
+    1 s with one, six such processes on 8 cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
