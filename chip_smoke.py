@@ -23,7 +23,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
    (64, 1048352);
 4. the paths at small sizes, on CUDA and on the CPU (plain versions). At
    3 yr x 180 x 360: config 1 (no merging) with boolean and integer outputs
-   bit-identical and floats within 1e-5; config 4 (merging, nearest-cell
+   bit-identical and floats within 1e-5, then again with the two-level event
+   labelling forced (``track.TWO_LEVEL_CELLS`` lowered), its ``ID_field``
+   bit-identical to the fused route's and the CPU's, and ``Field``
+   reductions and operators on its CUDA payloads against CPU copies
+   (integers and bools bit-identical, floats within 1e-5 relative); config 4 (merging, nearest-cell
    partitioning) with ``ID_field``, ``global_ID``, ``presence``,
    ``merge_ledger`` and every merge record bit-identical, ``area`` and
    ``centroid`` within 1e-5, and merges and partitions that really happened;
@@ -39,7 +43,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
    bit-identical, and its first 400 days with merging on, held like config 4.
    Streamed tracking (``tracker.run_streamed`` from a lazy zarr store, in at
    least 4 time blocks) of config 4's slice and of config 5's, each held like
-   config 4 against its in-memory run on the card and against the CPU's;
+   config 4 against its in-memory run on the card and against the CPU's; the
+   tracker's mid-level API (``identify_objects`` per slice and with time
+   connectivity by both routes, ``calculate_object_properties``,
+   ``find_overlapping_objects``, ``check_overlap_slice``, ``mask_values``)
+   with config 4's settings on the first 120 days of config 4's slice, bit
+   for bit against the CPU;
 5. the paths at full size, generated on the card from ``--seed``. At
    3 yr x 720 x 1440 daily (0.25 degree global): ``preprocess_data`` then
    ``tracker(R_fill=12, T_fill=4, area_filter_absolute=600,
@@ -60,9 +69,17 @@ Phases, each of which raises (and so exits nonzero) on failure:
    and config 8 (config 4's extremes in a zarr store with 64-day chunks,
    tracked by ``run_streamed(memory_budget_mb=2048)``) held against config
    4's in-memory run like the phase-4 slices, its peak device memory within
-   twice the budget. Each path is run with the kernels' launch counts set to
-   0 just before it and read just after, and must have launched the kernels
-   it labels on (config 7, detect alone, labels nothing);
+   twice the budget. Config 1's run is repeated with the two-level event
+   labelling forced, its ``ID_field`` bit-identical to the fused route's.
+   Last, config 1 at six years, 2190 x 720 x 1440 (2,270,592,000 cells, past
+   the fused 3-D labelling's int32 flat indices): detect, then everything
+   but the extremes and the mask freed, then the tracker, which must take
+   the two-level route (``ccl3d/edges``, ``ccl3d/union``, ``ccl3d/remap``)
+   and give dense ids; its walls, stages, launches and the peaks after
+   detect and over the track are printed. Each path is run with the
+   kernels' launch counts set to 0 just before it and read just after, and
+   must have launched the kernels it labels on (config 7, detect alone,
+   labels nothing);
 6. the kernels on the paths' own labels: the area filter's fixpoint on
    config 4's field, run by hand with each launch timed, and at its
    iterations 1, 6 and 12 the fused step and the jump timed beside the
@@ -75,10 +92,15 @@ Phases, each of which raises (and so exits nonzero) on failure:
    field, ``graph_step`` at iterations 1, 4 and 8 held against its plain
    version on those labels (bit-identical) and timed beside its bound, and
    at 4 beside its plain version, the gather of the table's rows and the
-   hook's ``scatter_reduce_``.
+   hook's ``scatter_reduce_``; then the six-year field's filter fixpoint by
+   hand, at iteration 6 its fused step and jump held against their plain
+   versions (bit-identical) on the slices that hold cells past 2**31, where
+   slice bases and hook targets need 64-bit offsets, then timed beside their
+   byte bounds and ``max_pool2d`` on the same labels.
 
 The line before the last is a JSON object with each kernel's launches on the
-path that runs it (config 4; config 5 for ``graph_step``), its largest
+path that runs it (config 4; config 5 for ``graph_step``) and on every path
+(``launches_by_path``), its largest
 difference from the plain version, and its time, its plain version's, its
 bound and the nearest PyTorch call's on that path's own labels (phase 6);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -87,6 +109,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -144,16 +167,17 @@ MESH_DAYS = 730  # config 5's two years
 BIG = 2**31 - 1
 
 
-def make_sst(n_years: int, ny: int, nx: int, seed: int, device: str, lat_range=(-89.5, 89.5), lon_range=(0.0, 360.0)):
+def make_sst(n_years: int, ny: int, nx: int, seed: int, device: str, lat_range=(-89.5, 89.5), lon_range=(0.0, 360.0),
+             n_days: int = 0):
     """Synthetic daily SST (T, ny, nx) float32, generated on ``device``: AR(1)
     noise, a seasonal cycle, drifting warm blobs (days 60-140), converging
     blob pairs (days 150-270) and a NaN land block — the recipe of
     ``bench._make_data_impl``, with torch's generator in place of numpy's. A
     longitude range other than the full circle includes its end point (a
-    regional grid)."""
+    regional grid). T is ``n_days`` when given, else ``n_years`` of days."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    times = pd.date_range("2000-01-01", periods=int(n_years * 365.25), freq="D").to_numpy()
+    times = pd.date_range("2000-01-01", periods=n_days or int(n_years * 365.25), freq="D").to_numpy()
     T = len(times)
     lat = np.linspace(lat_range[0], lat_range[1], ny)
     lon = np.linspace(lon_range[0], lon_range[1], nx, endpoint=lon_range != (0.0, 360.0))
@@ -602,6 +626,8 @@ def slices_against_cpu(mx, ny: int, nx: int, seed: int, device: str) -> None:
         f"{n_attrs}; cuda detect {det_g:.3f} s track {trk_g:.3f} s; cpu detect {det_c:.3f} s track {trk_c:.3f} s; "
         f"ccl iterations cuda {tr_g.ccl_iterations} cpu {tr_c.ccl_iterations}"
     )
+    two_level_against_fused(mx, ds_g, ev_g, ev_c, ny, device)
+    field_ops_against_cpu(mx, ds_g["dat_anomaly"], ds_c["dat_anomaly"], ds_g["extreme_events"])
     del ds_g, ev_g, tr_g, ds_c, ev_c, tr_c
 
     ds_g, ev_g, mg_g, tr_g, det_g, trk_g, _ = run_slice(mx, sst, coords, device, ny, merge=True)
@@ -618,8 +644,118 @@ def slices_against_cpu(mx, ny: int, nx: int, seed: int, device: str) -> None:
     print(f"merge slice stage_walls cpu: {json.dumps(tr_c.stage_walls)}")
     streamed_slice(mx, ds_g, ev_g, mg_g, ev_c, mg_c, 256, f"config 4 slice 3yr x {ny} x {nx}",
                    lambda ev: mx.tracker(ev, ds_g.mask, device=device, quiet=True, **track_kwargs(ny, True)))
+    midlevel_against_cpu(mx, ds_g, ny, device)
     del ds_g, ev_g, mg_g, tr_g, ev_c, mg_c, tr_c
     detect_methods_against_cpu(mx, sst, sst_cpu, coords, ny, nx, seed, device)
+
+
+@contextlib.contextmanager
+def forced_two_level(mx):
+    """A context in which the tracker labels events in two levels at any
+    size (``track.TWO_LEVEL_CELLS`` lowered to 1)."""
+    saved = mx.track.TWO_LEVEL_CELLS
+    mx.track.TWO_LEVEL_CELLS = 1
+    try:
+        yield
+    finally:
+        mx.track.TWO_LEVEL_CELLS = saved
+
+
+def two_level_against_fused(mx, ds, ev_fused, ev_cpu, ny: int, device: str) -> None:
+    """Phase 4: config 1's tracker on the slice's extremes with the two-level
+    route forced, on the card: ``ID_field`` and attrs bit-identical to the
+    fused route's on the card and to the CPU's."""
+    with forced_two_level(mx):
+        tr = mx.tracker(ds.extreme_events, ds.mask, device=device, quiet=True, **track_kwargs(ny))
+        ev = tr.run()
+    if "ccl3d/edges" not in tr.stage_walls:
+        raise AssertionError(f"two-level slice: the two-level route was not taken: {tr.stage_walls}")
+    for what, other in (("fused on the card", ev_fused), ("CPU", ev_cpu)):
+        if not np.array_equal(ev["ID_field"].values, other["ID_field"].values) or ev.attrs != other.attrs:
+            raise AssertionError(f"two-level slice: ID_field or attrs differ from the {what}")
+    print(f"two-level slice {tuple(ds.extreme_events.shape)}: forced two-level ID_field == fused on the card == CPU "
+          f"(bit-identical), N_events_final {ev.attrs['N_events_final']}; ccl3d stages "
+          f"{json.dumps({k: v for k, v in tr.stage_walls.items() if k.startswith('ccl3d')})}")
+
+
+def field_ops_against_cpu(mx, anom_g, anom_c, ext_g) -> None:
+    """Phase 4: ``Field`` reductions and operators on CUDA payloads against
+    the same on CPU copies: integer and bool results bit-identical, float
+    results within 1e-5 relative (reduction order differs), every result on
+    the payload's device."""
+    ext_c = mx.Field(ext_g.data.cpu(), ext_g.dims, ext_g.coords, ext_g.name, ext_g.attrs)
+    # sums and means of a positive field: the anomalies' own sum over time is
+    # about 0, where float32 reductions in another order differ in every digit
+    cases = {
+        "sum time": lambda a, e: (a + 20.0).sum("time", skipna=True),
+        "mean": lambda a, e: (a + 20.0).mean(("lat", "lon")),
+        "std time": lambda a, e: a.std("time"),
+        "max": lambda a, e: a.max("time"),
+        "min": lambda a, e: a.min(),
+        "quantile": lambda a, e: a.quantile(0.9, "time"),
+        "count": lambda a, e: a.count("time"),
+        "argmax": lambda a, e: a.argmax("time"),
+        "where": lambda a, e: a.where(e, -1.0),
+        "add, mul": lambda a, e: (a * 2.0 + 1.0),
+        "gt": lambda a, e: a > 0.5,
+        "and": lambda a, e: e & (a > 0.0),
+        "extremes sum": lambda a, e: e.sum(("lat", "lon")),
+        "extremes any": lambda a, e: e.any("time"),
+    }
+    worst = 0.0
+    for name, fn in cases.items():
+        g, c = fn(anom_g, ext_g), fn(anom_c, ext_c)
+        if not isinstance(g.data, torch.Tensor) or g.data.device.type != "cuda" or g.dims != c.dims:
+            raise AssertionError(f"Field {name}: result not on the card, or dims {g.dims} vs {c.dims}")
+        a, b = g.values, c.values
+        if a.dtype != b.dtype:
+            raise AssertionError(f"Field {name}: dtype {a.dtype} (CUDA) vs {b.dtype} (CPU)")
+        if a.dtype.kind != "f":
+            if not np.array_equal(a, b):
+                raise AssertionError(f"Field {name}: CUDA differs from the CPU")
+            continue
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=f"Field {name}: NaN pattern")
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6, err_msg=f"Field {name}")
+        fin = np.isfinite(b) & (b != 0)
+        worst = max(worst, float(np.max(np.abs(a[fin] - b[fin]) / np.abs(b[fin]))) if fin.any() else 0.0)
+    print(f"Field operations on CUDA payloads ({len(cases)} cases on {tuple(anom_g.shape)}): == CPU (integers and bools "
+          f"bit-identical, floats within 1e-5 relative; largest {worst:.3g})")
+
+
+def midlevel_against_cpu(mx, ds, ny: int, device: str, days: int = 120) -> None:
+    """Phase 4: the tracker's mid-level API with config 4's settings on the
+    first ``days`` days of config 4's slice, on the card and on the CPU:
+    ``identify_objects`` (per slice, and with time connectivity by both
+    routes), ``calculate_object_properties``, ``find_overlapping_objects``,
+    ``check_overlap_slice`` and ``mask_values``, bit for bit."""
+    ext = ds.extreme_events.isel(time=np.arange(days))
+    out = {}
+    for d in (device, "cpu"):
+        tr = mx.tracker(ext if d == device else ext.to("cpu"), ds.mask if d == device else ds.mask.to("cpu"),
+                        device=d, quiet=True, **track_kwargs(ny, True))
+        lab, _, n = tr.identify_objects(ext)
+        lab3, _, n3 = tr.identify_objects(ext, time_connectivity=True)
+        with forced_two_level(mx):
+            lab3_two, _, n3_two = tr.identify_objects(ext, time_connectivity=True)
+        if n3_two != n3 or not torch.equal(lab3_two.data, lab3.data):
+            raise AssertionError(f"identify_objects on {d}: the two-level route differs from the fused one")
+        props = tr.calculate_object_properties(lab)
+        t = int(torch.argmax((lab.data.flatten(1) > 0).sum(1)))
+        out[d] = dict(
+            labels=lab.values, n=n, events=lab3.values, n_events=n3, area=props["area"].values,
+            centroid=props["centroid"].values, ids=props["area"].coords["ID"].values,
+            overlaps=tr.find_overlapping_objects(lab), slice_pair=tr.check_overlap_slice(lab.data[t], lab.data[t + 1]),
+            mask=tr.mask_values,
+        )
+    for key, val in out[device].items():
+        other = out["cpu"][key]
+        if not (val == other if np.isscalar(val) else same_bits(np.asarray(val), np.asarray(other))):
+            raise AssertionError(f"mid-level API: {key} differs between CUDA and CPU")
+    if out[device]["n"] <= 0 or len(out[device]["overlaps"]) == 0:
+        raise AssertionError("mid-level API: no objects or no overlaps on the slice")
+    print(f"mid-level API on config 4's slice, {days} days: CUDA == CPU (bit-identical: {', '.join(out[device])}); "
+          f"{out[device]['n']} objects, {out[device]['n_events']} events, {len(out[device]['overlaps'])} overlap pairs; "
+          f"time-connected ids equal by both routes")
 
 
 def streamed_slice(mx, ds, ev_mem, mg_mem, ev_cpu, mg_cpu, block_T: int, what: str, make_tracker) -> None:
@@ -800,6 +936,8 @@ def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str):
             check_event_ids(events, (T, ny, nx))
         report_path(f"{path} {sst.shape[0]} x {ny} x {nx} (tracked {T} days)", sst.numel(), events, tr, t_det, t_trk,
                     detect_peak, launches[path])
+        if path == "config 1":
+            two_level_full_size(mx, ds, events, ny)
         if detect is DETECT_CONFIG2:
             refs["config 2"] = {k: ds[k].values for k in ("dat_anomaly", "extreme_events", "thresholds", "mask")}
         if merge:
@@ -814,6 +952,134 @@ def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str):
         del ds
     refs["sst"] = torch.empty(sst.shape, dtype=sst.dtype, pin_memory=True).copy_(sst)
     return launches, refs
+
+
+def two_level_full_size(mx, ds, events, ny: int) -> None:
+    """Phase 5: config 1's tracker again on its own extremes at full size,
+    with the two-level route forced: ``ID_field`` and attrs bit-identical to
+    the fused route's run just before."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with forced_two_level(mx):
+        tr = mx.tracker(ds.extreme_events, ds.mask, device="cuda", quiet=True, **track_kwargs(ny))
+        ev = tr.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if "ccl3d/edges" not in tr.stage_walls:
+        raise AssertionError(f"config 1, forced two-level: the two-level route was not taken: {tr.stage_walls}")
+    if not torch.equal(ev["ID_field"].data, events["ID_field"].data) or ev.attrs != events.attrs:
+        raise AssertionError("config 1, forced two-level: ID_field or attrs differ from the fused route's")
+    print(f"  forced two-level at {tuple(ds.extreme_events.shape)}: ID_field == the fused route's (bit-identical); "
+          f"track {wall:.3f} s; ccl3d stages {json.dumps({k: v for k, v in tr.stage_walls.items() if 'ccl3d' in k})}")
+
+
+# config 1 at six years of days: 2,270,592,000 cells at 720 x 1440, past the
+# fused 3-D labelling's int32 flat indices, so its events are labelled in two levels
+LONG_DAYS = 2190
+
+
+def long_nomerge_path(mx, seed: int, kernels: dict):
+    """Phase 5, config 1 at 2190 x 720 x 1440 through ``preprocess_data`` and
+    ``tracker(...).run()``, with the kernels' launch counts set to 0 just
+    before it and read just after: everything but the extremes and the mask
+    is freed before tracking; the run must take the two-level route and give
+    dense ids. Prints the walls, every stage, the peaks after detect and over
+    the track; returns (launch counts, the tracker, for phase 6)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sst, coords = make_sst(0, 720, 1440, seed, "cuda", n_days=LONG_DAYS)
+    torch.cuda.synchronize()
+    n_in = sst.numel()
+    print(f"config 1 at {LONG_DAYS} days: data {tuple(sst.shape)} ({n_in} cells) generated on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launch_count = 0
+    t0 = time.perf_counter()
+    ds = mx.preprocess_data(mx.Field(sst, ("time", "lat", "lon"), coords, name="sst"), device="cuda", quiet=True,
+                            **DETECT_FIXED)
+    torch.cuda.synchronize()
+    t_det = time.perf_counter() - t0
+    detect_peak = torch.cuda.max_memory_allocated()
+    thr, ocean = ds["thresholds"].data, ds["mask"].data
+    if not bool(torch.isfinite(thr[..., ocean]).all()):
+        raise AssertionError(f"config 1 at {LONG_DAYS} days: non-finite thresholds over the ocean")
+    extremes, mask = ds.extreme_events, ds.mask
+    del sst, ds, thr, ocean
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    tr = mx.tracker(extremes, mask, device="cuda", quiet=True, **track_kwargs(720))
+    events = tr.run()
+    torch.cuda.synchronize()
+    t_trk = time.perf_counter() - t1
+    counts = {k: fn.launch_count for k, fn in kernels.items()}
+    if "ccl3d/edges" not in tr.stage_walls:
+        raise AssertionError(f"config 1 at {LONG_DAYS} days: the two-level route was not taken: {tr.stage_walls}")
+    check_event_ids(events, (LONG_DAYS, 720, 1440))
+    report_path(f"config 1 at {LONG_DAYS} x 720 x 1440 (two-level ccl3d)", n_in, events, tr, t_det, t_trk, detect_peak,
+                counts)
+    print(f"  peak over the track (max_memory_allocated from the tracker's start, the extremes and mask held: "
+          f"{held / 2**30:.2f} GiB) {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; ccl3d sub-stages "
+          f"{json.dumps({k: v for k, v in tr.stage_walls.items() if 'ccl3d' in k})}")
+    del events
+    return counts, tr
+
+
+def long_path_labels(tr) -> dict:
+    """Phase 6, the 2190-day path's own labels: the area filter's fixpoint
+    on its field (refilled from the tracker's extremes), run by hand with
+    each launch timed; at iteration 6 both kernels held against their plain
+    versions (tolerance 0) on the slices that hold cells past 2**31 (whose
+    slice bases and hook targets need 64-bit offsets), the fused step and
+    the jump timed beside their byte bounds, and ``max_pool2d`` on the same
+    labels (in batches of slices under 2**31 elements, summed). Returns
+    {kernel: max abs difference}."""
+    from marex_tpu_torch.ops.min_stencil import ccl_step, ccl_step_plain, pointer_jump, pointer_jump_plain
+
+    torch.cuda.empty_cache()
+    data = tr.fill_time_gaps(tr.fill_holes(tr.data_bin.data)).contiguous()
+    T, H, W = data.shape
+    S, N = H * W, data.numel()
+    split = Split()
+    iters, snaps = fused_fixpoint(data, False, split, keep=(6,))
+    print(f"filter fixpoint on the {T}-day field ({int(data.sum())} active cells of {N}): {iters} iterations; summed "
+          f"launch ms {json.dumps(split.ms)}")
+    a, b = snaps.pop(6)
+    out = torch.empty_like(a)
+    t_step = cuda_ms_fresh(lambda: ccl_step(a, data, out), lambda: out.copy_(b), reps=3)
+    hooked = b.clone()
+    flag = int(ccl_step(a, data, hooked))
+    # the plain versions on the slices from the first that holds cell 2**31 on
+    far = 2**31 // S
+    jumped = pointer_jump(hooked, S, out=out)[far:].clone()
+    want = b[far:].clone()
+    flag_far = int(ccl_step_plain(a[far:], data[far:], want))
+    n_lowered = int((want != b[far:]).sum())
+    err = {"ccl_step": max(max_abs_diff(hooked[far:], want), int(flag_far and not flag)),
+           "pointer_jump": max_abs_diff(jumped, pointer_jump_plain(hooked[far:], S))}
+    del want, jumped
+    if any(err.values()) or not n_lowered:
+        raise AssertionError(f"{T}-day iteration 6, slices {far}..{T - 1}: kernels against their plain versions "
+                             f"{err}, {n_lowered} cells lowered by the step")
+    print(f"{T}-day iteration 6: ccl_step and pointer_jump bit-identical to their plain versions (tolerance 0) on "
+          f"slices {far}..{T - 1} (bases {far * S}..{(T - 1) * S}; {n_lowered} cells lowered by the step there)")
+    t_jump = cuda_ms(lambda: pointer_jump(hooked, S, out=out), reps=3)
+    del hooked, out, b
+    torch.cuda.empty_cache()
+    t_pool = 0.0
+    step = (2**31 - 1) // ((H + 2) * (W + 2))
+    for t0 in range(0, T, step):
+        xp = neg_padded(a[t0 : t0 + step])
+        t_pool += cuda_ms(lambda: torch.nn.functional.max_pool2d(xp, 3, stride=1), reps=3)
+        del xp
+    print(f"{T}-day iteration 6: ccl_step {t_step:.4f} ms (bound {bound_ms(9 * N):.4f} ms, 9 B a cell), pointer_jump "
+          f"{t_jump:.4f} ms (bound {bound_ms(8 * N):.4f} ms); max_pool2d on the same labels {t_pool:.4f} ms "
+          f"(in batches of {step} slices)")
+    del a, data
+    torch.cuda.empty_cache()
+    return err
 
 
 def config2_detect_split(mx, sst, coords, ds, tinfo) -> None:
@@ -1583,6 +1849,8 @@ def main() -> int:
     launches.update(mesh_and_regional_paths(mx, args.seed, kernels))
     launches.update(streamed_paths(mx, refs, kernels))
     del refs
+    torch.cuda.empty_cache()
+    launches[f"config 1 at {LONG_DAYS} days"], long_tr = long_nomerge_path(mx, args.seed, kernels)
     # the mesh path labels on graph_step, every gridded tracking path on
     # ccl_step; all jump. Config 7 is detect alone and labels nothing
     for path, counts in launches.items():
@@ -1597,6 +1865,10 @@ def main() -> int:
     label_times = main_path_labels(mx, args.seed)
     torch.cuda.empty_cache()
     label_times["graph_step"] = mesh_labels(mx, args.seed)
+    torch.cuda.empty_cache()
+    for k, diff in long_path_labels(long_tr).items():
+        err[k] = max(err[k], diff)
+    del long_tr
 
     # each kernel's launches on the path that runs it: the merge path, and for the mesh step config 5
     source = {"ccl_step": "min_stencil.cu", "pointer_jump": "min_stencil.cu", "graph_step": "graph_step.cu"}
@@ -1609,6 +1881,7 @@ def main() -> int:
             "source": f"marex_tpu_torch/csrc/{source[k]}",
             "replaces": replaces[k],
             "launches": launches["config 5" if k == "graph_step" else "merge path (config 4)"][k],
+            "launches_by_path": {path: counts[k] for path, counts in launches.items()},
             "max_abs_err": err[k],
             **label_times[k],
         }

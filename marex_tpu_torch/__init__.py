@@ -22,7 +22,13 @@ mesh's ``neighbours`` and ``cell_areas``). Data larger than memory goes
 through the out-of-core path: zarr stores (``io.zarr_lite``),
 ``preprocess_data_streamed`` (latitude-row tiles) and
 ``tracker(...).run_streamed`` (time blocks), and the tracker's preprocessing
-checkpoints (``run(checkpoint='save' | 'load' | 'auto')``). Tensors stay on
+checkpoints (``run(checkpoint='save' | 'load' | 'auto')``). No-merge
+tracking past 2**31 - 1 cells labels in two levels, as the reference does;
+the tracker's mid-level API (``identify_objects``,
+``calculate_object_properties``, ``check_overlap_slice``,
+``find_overlapping_objects``), the ``Field`` operators and reductions (in
+torch, on the payload's device) and the runtime helpers (``helper``) are
+ported; ``plotX`` is not yet. Tensors stay on
 the device they were given; numpy inputs move to ``device`` (default
 ``"cuda"``); lazy zarr payloads stay on disk until read. The
 connected-component labelling runs on hand-written CUDA kernels
@@ -31,7 +37,13 @@ compiled with ``nvcc`` at first use; event clustering uses the host
 union-find of ``csrc/marex_host.cpp``, compiled with ``g++`` at first use.
 """
 
-from .core.field import Coord, Field, FieldSet, as_field, concat, from_reference
+from ._dependencies import (
+    get_dependency_status,
+    get_installation_profile,
+    has_dependency,
+    print_dependency_status,
+)
+from .core.field import Coord, Field, FieldSet, as_field, concat, from_reference, from_xarray
 from .detect import (
     add_decimal_year,
     compute_normalised_anomaly,
@@ -40,6 +52,7 @@ from .detect import (
     rolling_climatology,
     smoothed_rolling_climatology,
 )
+from .detect_stream import preprocess_data_streamed
 from .exceptions import (
     ConfigurationError,
     CoordinateError,
@@ -50,26 +63,46 @@ from .exceptions import (
     ProcessingError,
     TrackingError,
     VisualisationError,
+    create_coordinate_error,
+    create_data_validation_error,
+    create_processing_error,
+    create_tracking_error,
+    wrap_exception,
 )
-from .detect_stream import preprocess_data_streamed
+from .helper import configure_dask, configure_devices
+from .logging_config import (
+    configure_logging,
+    get_logger,
+    get_verbosity_level,
+    is_quiet_mode,
+    is_verbose_mode,
+    set_normal_logging,
+    set_quiet_mode,
+    set_verbose_mode,
+)
 from .track import regional_tracker, tracker
 
 __all__ = [
+    # Core containers
     "Field",
     "FieldSet",
     "Coord",
     "as_field",
+    "from_xarray",
     "concat",
     "from_reference",
+    # Core data preprocessing
     "preprocess_data",
     "preprocess_data_streamed",
     "compute_normalised_anomaly",
-    "identify_extremes",
-    "rolling_climatology",
     "smoothed_rolling_climatology",
+    "rolling_climatology",
+    "identify_extremes",
     "add_decimal_year",
+    # Tracking
     "tracker",
     "regional_tracker",
+    # Exceptions
     "MarExError",
     "DataValidationError",
     "CoordinateError",
@@ -79,6 +112,48 @@ __all__ = [
     "TrackingError",
     "VisualisationError",
     "DeviceError",
+    "create_data_validation_error",
+    "create_coordinate_error",
+    "create_processing_error",
+    "create_tracking_error",
+    "wrap_exception",
+    # Dependency management
+    "has_dependency",
+    "print_dependency_status",
+    "get_dependency_status",
+    "get_installation_profile",
+    # Logging configuration
+    "configure_logging",
+    "set_verbose_mode",
+    "set_quiet_mode",
+    "set_normal_logging",
+    "get_verbosity_level",
+    "is_verbose_mode",
+    "is_quiet_mode",
+    "get_logger",
+    # Runtime helpers
+    "configure_dask",
+    "configure_devices",
 ]
 
 __version__ = "0.1.0"
+
+# the plotting names come with the port of plotX, the sharded package with multi-GPU
+_NOT_PORTED = {name: "ROADMAP queue 1, item 12 (plotX)" for name in ("plotX", "PlotConfig", "specify_grid")}
+_NOT_PORTED["parallel"] = "ROADMAP queue 1, item 11 (multi-GPU)"
+
+
+def __getattr__(name):
+    # importlib.import_module, not ``from . import x``: the latter re-enters
+    # this __getattr__ during the submodule import
+    import importlib
+
+    if name in ("helper", "check_device_health", "run_with_retries", "start_local_cluster",
+                "start_distributed_cluster"):
+        mod = importlib.import_module(".helper", __name__)
+        return mod if name == "helper" else getattr(mod, name)
+    if name == "io":
+        return importlib.import_module(".io", __name__)
+    if name in _NOT_PORTED:
+        raise AttributeError(f"marex_tpu_torch.{name} is not ported yet: {_NOT_PORTED[name]}")
+    raise AttributeError(f"module 'marex_tpu_torch' has no attribute {name!r}")

@@ -122,3 +122,14 @@ def get_installation_profile() -> str:
         if all(status.get(n, False) for n in INSTALLATION_PROFILES[profile]):
             best = profile
     return best
+
+
+def print_dependency_status() -> None:
+    """Human-readable dump of dependency availability."""
+    status = get_dependency_status()
+    print("marex_tpu_torch optional dependencies:")
+    for name, ok in status.items():
+        _, why = OPTIONAL_DEPENDENCIES[name]
+        mark = "+" if ok else "-"
+        print(f"  [{mark}] {name:<12} {why}")
+    print(f"Installation profile: {get_installation_profile()}")

@@ -99,8 +99,12 @@ def label_slices_grid_roots(data: torch.Tensor, wrap_x: bool = True) -> Tuple[to
         start, lambda a, b: ccl_step(a, data, b, depth3=False, wrap_x=wrap_x), S, MAX_ITERS_2D, "per-slice CCL"
     )
     root_flat = lab.view(T, S)
-    roots = (root_flat == torch.arange(S, dtype=torch.int32, device=data.device)).view(-1).nonzero().squeeze(1)
-    return root_flat, torch.bincount(roots // S, minlength=T), iters
+    # a slice's components are its roots, the cells labelled with their own
+    # index; counted over time chunks (no whole-field nonzero)
+    idx = torch.arange(S, dtype=torch.int32, device=data.device)
+    tb = max(1, _CHUNK_CELLS // max(S, 1))
+    counts = torch.cat([(root_flat[t0 : t0 + tb] == idx).sum(dim=1) for t0 in range(0, T, tb)])
+    return root_flat, counts, iters
 
 
 def label_slices_unstructured(data: torch.Tensor, neighbours: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -200,8 +204,8 @@ def label_spacetime_roots(data: torch.Tensor, wrap_x: bool = True) -> Tuple[torc
     N = T * H * W
     if N >= BIG:
         raise TrackingError(
-            f"3-D labelling needs T*H*W < 2**31 - 1 (int32 flat indices), got {N}",
-            suggestions=["Track a shorter time range per run"],
+            f"the fused 3-D labelling needs T*H*W < 2**31 - 1 (int32 flat indices), got {N}",
+            suggestions=["Label in two levels (per-slice labels joined across time), as the tracker does at this size"],
             context={"shape": (T, H, W)},
         )
     # two label fields live at once (4.5 GB each at production size)

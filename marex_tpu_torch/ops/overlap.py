@@ -1,5 +1,6 @@
 """
-The temporal overlap graph of merge tracking.
+The temporal overlap graph of merge tracking, and the inter-slice edges of
+the two-level 3-D labelling.
 
 The port of ``marex_tpu/ops/overlap.py`` and of the tracker's pair helpers
 (``consecutive_pairs_tiled``, ``compact_pairs``, ``_pairs_dev``): for
@@ -78,6 +79,65 @@ def slice_pairs(
     (the march's refresh of one slice pair)."""
     _, pa, pb, pw = consecutive_pairs(torch.stack([a, b]), key_stride, weights)
     return pa, pb, pw
+
+
+def _shifted(a: torch.Tensor, dy: int, dx: int, wrap_x: bool) -> torch.Tensor:
+    """``a`` (..., H, W) moved by (dy, dx): ``out[..., y, x] = a[..., y - dy,
+    x - dx]``, 0 where ``y - dy`` leaves the grid, and where ``x - dx`` does
+    unless ``wrap_x`` (periodic in x)."""
+    if dx and wrap_x:
+        a = torch.roll(a, dx, dims=-1)
+    for d, dim in ((dx, -1), (dy, -2)):
+        if not d or (dim == -1 and wrap_x):
+            continue
+        n = a.shape[dim]
+        out = torch.zeros_like(a)
+        if abs(d) < n:
+            out.narrow(dim, max(d, 0), n - abs(d)).copy_(a.narrow(dim, max(-d, 0), n - abs(d)))
+        a = out
+    return a
+
+
+def adjacency_edges(labels: torch.Tensor, key_stride: int, wrap_x: bool) -> torch.Tensor:
+    """
+    The inter-slice edges of 3x3x3 connectivity: every (a, b) with a cell of
+    object a at slice t in the 3 x 3 neighbourhood of a cell of object b at
+    slice t + 1 (periodic in x with ``wrap_x``), as the co-located pairs of
+    slice t moved by each of the nine (dy, dx) and slice t + 1
+    (``marex_tpu/ops/overlap.py:adjacency_pairs_shift``). Keys are int64
+    ``a * key_stride + b``, over time chunks of about ``_CHUNK_CELLS``
+    cells; only the first cell of each run of equal keys along x is kept
+    before the sort, which leaves the set of keys as it is.
+
+    labels : (T, H, W) int32 globally unique object ids (0 = background),
+        all < key_stride
+    Returns (E, 2) int64 edges on the labels' device, unique and ascending.
+    """
+    T, H, W = labels.shape
+    K = int(key_stride)
+    if K * K >= 2**63:
+        raise ValueError(f"edge keys overflow int64: key_stride={K}")
+    keys = []
+    tb = max(1, _CHUNK_CELLS // max(H * W, 1))
+    for t0 in range(0, T - 1, tb):
+        n = min(tb, T - 1 - t0)
+        a, b = labels[t0 : t0 + n], labels[t0 + 1 : t0 + 1 + n]
+        b_on = b > 0
+        b_key = b.long()
+        chunk = []
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                sa = _shifted(a, dy, dx, wrap_x)
+                both = b_on & (sa > 0)
+                key = torch.where(both, sa.long() * K + b_key, -1)
+                both[..., 1:] &= key[..., 1:] != key[..., :-1]  # run starts along x
+                chunk.append(key[both])
+                del sa, key, both
+        keys.append(torch.unique(torch.cat(chunk)))
+    if not keys:
+        return torch.zeros((0, 2), dtype=torch.int64, device=labels.device)
+    key = torch.unique(torch.cat(keys))
+    return torch.stack([key // K, key % K], dim=1)
 
 
 def union_find_components(pairs: np.ndarray, node_ids: np.ndarray) -> np.ndarray:

@@ -3,8 +3,9 @@ MarEx track on PyTorch: event identification and tracking.
 
 The port of ``marex_tpu/track.py``: morphological hole and gap filling,
 the area filter over per-slice connected components, then either 3x3x3
-spatio-temporal event labelling (``allow_merging=False`` on a grid) or the
-split/merge march (``allow_merging=True``, the default, and always on a
+spatio-temporal event labelling (``allow_merging=False`` on a grid; from
+``TWO_LEVEL_CELLS`` cells in two levels, per-slice labels joined across time
+by a host union-find, as the reference does) or the split/merge march (``allow_merging=True``, the default, and always on a
 mesh): per-slice objects linked through their overlaps, merging children
 partitioned among their parents, and the objects clustered into events with
 per-event area, centroid, presence and merge ledger. Grids are global
@@ -20,6 +21,10 @@ The march follows the reference's per-step form
 consolidation chains, new ids, the ledger) is host Python on small tables,
 and every full-field or per-slice array operation runs on the tracker's
 device.
+
+The mid-level API (``identify_objects``, ``calculate_object_properties``,
+``check_overlap_slice``, ``find_overlapping_objects``) runs the same ops on
+the tracker's device.
 
 Preprocessing checkpoints (``checkpoint='save'``, ``'load'``, ``'auto'``)
 persist the filtered field and its statistics as a zarr store and an
@@ -58,6 +63,13 @@ from .ops import properties as _props
 logger = get_logger(__name__)
 
 MAX_PARENTS = 10  # parent capacity per merge event
+
+#: Cells (T*H*W) from which the 3-D event labelling (``ccl3d``, and
+#: ``identify_objects(time_connectivity=True)``) runs in two levels, per-slice
+#: labels joined across time by a host union-find, in place of the fused 3-D
+#: fixpoint, whose flat indices are int32. Both give the same ids; tests lower
+#: it to hold them equal.
+TWO_LEVEL_CELLS = _label.BIG
 
 _NOT_PORTED = {"mesh": "ROADMAP queue 1, item 11 (multi-GPU)"}
 
@@ -714,11 +726,12 @@ class tracker:
             first = root_flat[t_first] == root_ids[t_first, 0]
             filtered[t_first].logical_and_(~first)
             out = filtered.view(data.shape)
-        if self.allow_merging:
+        if self.allow_merging or data.numel() >= TWO_LEVEL_CELLS:
             # Area filtering drops whole components, so the filtered field's
             # per-slice roots are the kept ones of root_flat: the merge path
-            # densifies these instead of labelling the field again. The keep
-            # table repeats filter/apply's float32 compare.
+            # and the two-level 3-D labelling densify these instead of
+            # labelling the field again. The keep table repeats
+            # filter/apply's float32 compare.
             keep = slot & (areas_tj >= np.float32(area_threshold))
             keep[t_first, 0] = False
             self._label_reuse = (weakref.ref(out), root_flat, root_ids, torch.from_numpy(keep).to(root_ids.device))
@@ -886,15 +899,148 @@ class tracker:
             logger.info("Finished tracking all extreme events!")
             return events_ds, merges_ds, N_events
         with self._stage_ctx("ccl3d"):
-            labf, iters = _label.label_spacetime_roots(data_bin_preprocessed, wrap_x=self._wrap)
-            dense, N_events = _label.densify_spacetime_roots(labf)
-            del labf
-            labels = dense.view(data_bin_preprocessed.shape)
-        self.ccl_iterations["ccl3d"] = iters
-        dims = (self.timedim,) + self._spatial_dims()
-        events_ds = FieldSet({"ID_field": Field(labels, dims, self.data_bin.coords, name="ID_field")})
+            labels, N_events = self._label_spacetime(data_bin_preprocessed)
+        events_ds = FieldSet({"ID_field": self._id_field(labels)})
         logger.info("Finished tracking all extreme events!")
         return events_ds, FieldSet(), N_events
+
+    def _id_field(self, labels: torch.Tensor) -> Field:
+        return Field(labels, (self.timedim,) + self._spatial_dims(), self.data_bin.coords, name="ID_field")
+
+    def _label_spacetime(self, data: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        """3x3x3-connected event labels of a (T, H, W) field, ids 1..N in
+        order of each event's first cell in (t, y, x) order: the fused 3-D
+        fixpoint below ``TWO_LEVEL_CELLS`` cells, two levels from there."""
+        if data.numel() >= TWO_LEVEL_CELLS:
+            return self._label_spacetime_two_level(data)
+        labf, iters = _label.label_spacetime_roots(data, wrap_x=self._wrap)
+        self.ccl_iterations["ccl3d"] = iters
+        dense, n_events = _label.densify_spacetime_roots(labf)
+        return dense.view(data.shape), n_events
+
+    def _label_spacetime_two_level(self, data: torch.Tensor) -> Tuple[torch.Tensor, int]:
+        """The reference's two-level labelling (``track._label_spacetime_two_level``):
+        per-slice labels (the area filter's roots when ``data`` is its
+        output) made unique by cumulative offsets, the inter-slice edges of
+        3x3x3 connectivity on the device, the union-find of the objects on
+        the host, then one remap in place. An event's id is the rank of its
+        first object, which holds its first cell: the fused route's ids."""
+        labels, counts = self._label_slices(data, "ccl3d")
+        labels = _label.offset_labels(labels, torch.from_numpy(counts))
+        n_obj = int(counts.sum())
+        with self._stage_ctx("ccl3d/edges"):
+            edges = _overlap.adjacency_edges(labels, n_obj + 1, self._wrap).cpu().numpy()
+        with self._stage_ctx("ccl3d/union"):
+            comp = _overlap.union_find_components(edges, np.arange(1, n_obj + 1))
+            lookup = np.zeros(n_obj + 1, np.int32)
+            lookup[1:] = comp + 1
+        with self._stage_ctx("ccl3d/remap"):
+            labels = _label.remap_labels(torch.from_numpy(lookup).to(labels.device), labels)
+        return labels, int(comp.max()) + 1 if n_obj else 0
+
+    # -- mid-level API ---------------------------------------------------
+
+    @property
+    def mask_values(self) -> np.ndarray:
+        """The mask as a host bool array."""
+        return np.asarray(self.mask.values, dtype=bool)
+
+    def _payload(self, field: Any, dtype: torch.dtype) -> torch.Tensor:
+        """A Field, tensor or array as a contiguous tensor of ``dtype`` on the
+        tracker's device."""
+        data = field.data if isinstance(field, Field) else field
+        return on_device(data, self.device).to(self.device, dtype).contiguous()
+
+    def identify_objects(self, data_bin: Any, time_connectivity: bool = False):
+        """
+        Label connected regions; returns ``(labels Field, None, N)``. With
+        ``time_connectivity`` (grids only) the 3x3x3 event labels of the
+        ``ccl3d`` stage, by the same route; otherwise per-slice labels made
+        globally unique by cumulative offsets.
+        """
+        data = self._payload(data_bin, torch.bool)
+        if time_connectivity:
+            if self.unstructured_grid:
+                raise ConfigurationError(
+                    "Time connectivity not supported for unstructured grids",
+                    details="Automatic time connectivity computation requires regular grids",
+                    suggestions=["Set time_connectivity=False for unstructured data"],
+                )
+            labels, n = self._label_spacetime(data)
+            return self._id_field(labels), None, n
+        labels, counts = self._label_slices(data)
+        return self._id_field(_label.offset_labels(labels, torch.from_numpy(counts))), None, int(counts.sum())
+
+    def calculate_object_properties(self, object_id_field: Any, properties: Optional[List[str]] = None) -> FieldSet:
+        """Area and centroid of each object id (pixel units on a grid,
+        degrees on a mesh): the area summed over time, the centroid of the
+        slice where the object is largest (the first such slice); a FieldSet
+        indexed by ``ID``. The property tables are made per time chunk over
+        each slice's ids ranked 1..L, so they are (T, L + 1) for the most ids
+        L in a slice, not (T, number of ids + 1)."""
+        labels = self._payload(object_id_field, torch.int32)
+        T = labels.shape[0]
+        flat = labels.reshape(T, -1)
+        n_labels = int(flat.max()) if flat.numel() else 0
+        if n_labels == 0:
+            ids = Coord("ID", np.array([], np.int32))
+            return FieldSet(
+                {
+                    "area": Field(np.array([], np.float32), ("ID",), {"ID": ids}),
+                    "centroid": Field(np.zeros((2, 0), np.float32), ("component", "ID"), {"ID": ids}),
+                }
+            )
+        K = n_labels + 1
+        rows = []  # (t, id, area, c0, c1) of every id present in a slice
+        tb = max(1, _label._CHUNK_CELLS // max(flat.shape[1], 1))
+        for t0 in range(0, T, tb):
+            chunk = flat[t0 : t0 + tb]
+            t_idx = torch.arange(chunk.shape[0], device=chunk.device)[:, None]
+            keys, local = torch.unique(t_idx * K + chunk, return_inverse=True)
+            t_k, id_k = keys // K, keys % K
+            first = torch.searchsorted(keys, t_k * K)  # each slice's first key (its background, if any)
+            rank = torch.arange(keys.numel(), device=keys.device) - first + (id_k[first] != 0).long()
+            local = rank[local].int()
+            L = int(rank.max())
+            if self.unstructured_grid:
+                props = _props.unstructured_label_props(local, self._mesh_wall, L)
+            else:
+                props = _props.grid_label_props(local.view((-1,) + labels.shape[1:]), L, wrap=self._wrap)
+            on = id_k > 0
+            rows.append(torch.stack([(t_k + t0).double(), id_k.double()] + [x[t_k, rank].double() for x in props])[:, on])
+        t_k, id_k, area, c0, c1 = torch.cat(rows, dim=1).cpu().numpy()
+        # per id, its largest entry first (the earliest slice among equals)
+        order = np.lexsort((t_k, -area, id_k))
+        id_s = id_k[order].astype(np.int32)
+        head = np.r_[True, id_s[1:] != id_s[:-1]]
+        ids = id_s[head]
+        tot_area = np.zeros(K, np.float64)
+        np.add.at(tot_area, id_k.astype(np.int64), area)
+        idc = Coord("ID", ids)
+        centroid = np.stack([c0[order][head], c1[order][head]]).astype(np.float32)
+        return FieldSet(
+            {
+                "area": Field(tot_area[ids].astype(np.float32), ("ID",), {"ID": idc}, name="area"),
+                "centroid": Field(centroid, ("component", "ID"),
+                                  {"ID": idc, "component": Coord("component", np.array([0, 1]))}, name="centroid"),
+            }
+        )
+
+    def check_overlap_slice(self, ids_t0: Any, ids_next: Any) -> np.ndarray:
+        """(id0, id1, weight) overlap triples of one slice pair, in ascending
+        (id0, id1) order: shared cells on a grid, their summed area on a
+        mesh; (N, 3) float64 on the host."""
+        a = self._payload(ids_t0, torch.int32).reshape(-1)
+        b = self._payload(ids_next, torch.int32).reshape(-1)
+        stride = int(torch.maximum(a.max(), b.max())) + 2 if a.numel() else 2
+        pa, pb, pw = _overlap.slice_pairs(a, b, stride, self._cell_weights())
+        return torch.stack([pa, pb, pw], dim=1).double().cpu().numpy()
+
+    def find_overlapping_objects(self, object_id_field: Any) -> np.ndarray:
+        """Overlap triples of every consecutive slice pair of an object id
+        field, merged over time: (N, 3) float64, ascending (id0, id1)."""
+        labels = self._payload(object_id_field, torch.int32)
+        return _merge_pair_lists(self._per_slice_pairs_device(labels))
 
     # -- merge tracking --------------------------------------------------
 

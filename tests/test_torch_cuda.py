@@ -437,3 +437,59 @@ def test_streamed_detect_on_cuda_matches_in_memory(tmp_path):
         for name in ("dat_anomaly", "extreme_events", "thresholds", "mask"):
             a, b = mem[name].values, np.asarray(s[name].values)
             assert a.dtype == b.dtype and np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), (i, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regional", [False, True], ids=["global", "regional"])
+def test_two_level_labelling_on_cuda_matches_fused(monkeypatch, regional):
+    """No-merge tracking with the two-level route forced (the cutover
+    lowered) equals the fused route on the card, and the CPU's."""
+    import marex_tpu_torch.track as ptrack
+
+    _need_cuda()
+    data = blob_field(3, 60, 40, 72, 120, 5)
+    lon = np.linspace(-30.0, 40.0, 72) if regional else np.linspace(0, 360, 72, endpoint=False)
+    coords = {"time": np.datetime64("2000-01-01", "ns") + np.arange(60) * np.timedelta64(1, "D"),
+              "lat": np.linspace(-60, 60, 40), "lon": lon}
+    ev = port.Field(data, ("time", "lat", "lon"), coords, name="extreme_events")
+    mask = port.Field(np.ones((40, 72), bool), ("lat", "lon"), {"lat": coords["lat"], "lon": lon}, name="mask")
+    kw = dict(TRACK_SMALL, regional_mode=regional, coordinate_units="degrees" if regional else None, quiet=True)
+    fused = port.tracker(ev, mask, device="cuda", **kw).run()
+    monkeypatch.setattr(ptrack, "TWO_LEVEL_CELLS", 1)
+    runs = {d: port.tracker(ev, mask, device=d, **kw) for d in ("cuda", "cpu")}
+    out = {d: tr.run() for d, tr in runs.items()}
+    assert "ccl3d/edges" in runs["cuda"].stage_walls
+    assert fused.attrs["N_events_final"] > 1
+    for d in ("cuda", "cpu"):
+        assert np.array_equal(out[d]["ID_field"].values, fused["ID_field"].values), d
+        assert out[d].attrs == fused.attrs, d
+
+
+@pytest.mark.cuda
+def test_field_reductions_on_cuda_match_cpu():
+    """``Field`` reductions and operators on a CUDA payload stay on the card
+    and equal the CPU's: integers and bools exactly, floats within 1e-5."""
+    _need_cuda()
+    sst = _drive_sst(T=400)
+    g = sst.to("cuda")
+    c = sst.to("cpu")
+    cases = [lambda f: f.sum("time", skipna=True), lambda f: f.mean(("lat", "lon")), lambda f: f.std("time"),
+             lambda f: f.max(), lambda f: f.quantile(0.95, "time"), lambda f: f.count("time"),
+             lambda f: (f > 15.0).sum(), lambda f: f.where(f > 15.0, 0.0) * 2.0, lambda f: f.argmax("time")]
+    for i, fn in enumerate(cases):
+        a, b = fn(g), fn(c)
+        assert a.data.device.type == "cuda" and a.dims == b.dims, i
+        x, y = a.values, b.values
+        assert x.dtype == y.dtype, i
+        if x.dtype.kind == "f":
+            np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-6, equal_nan=True, err_msg=str(i))
+        else:
+            assert np.array_equal(x, y), i
+
+
+@pytest.mark.cuda
+def test_check_device_health_on_the_card():
+    _need_cuda()
+    report = port.check_device_health()
+    assert report["ok"] and len(report["devices"]) == torch.cuda.device_count() >= 1
+    assert all(d["ok"] for d in report["devices"])
