@@ -14,13 +14,15 @@ Phases, each of which raises (and so exits nonzero) on failure:
    jump per slice and over the block, random masks, ragged widths and the
    main path's own shape 1095 x 720 x 1440; then each timed at
    (64, 720, 1440) on random labels, beside its plain version and the
-   nearest single PyTorch call. The mesh step ``graph_step`` likewise: on
-   the triangle-pair mesh's table (as given and symmetrised, up to config
-   5's own shape, 730 x 1,048,352 cells, where a block walks many chunks of
-   slices) and on random directed tables after symmetrising (more than 3
-   rows, ``-1`` entries, ragged cell counts), ``out`` BIG-filled and stale,
-   the flag, and the whole mesh fixpoint against the CPU's; then timed at
-   (64, 1048352);
+   nearest single PyTorch call. The mesh kernels over the list of active
+   cells likewise, ``graph_step`` against its plain version and the dense
+   step, ``graph_jump`` against its plain version and the whole-field jump:
+   on the triangle-pair mesh's table (as given and symmetrised, up to config
+   5's own shape, 730 x 1,048,352 cells) and on random directed tables after
+   symmetrising (more than 3 rows, ``-1`` entries, ragged cell counts),
+   ``out`` BIG-filled and stale, the flag, and the whole mesh fixpoint
+   against the CPU's; then both timed at (64, 1048352) beside
+   ``index_select`` and ``torch.take``;
 4. the paths at small sizes, on CUDA and on the CPU (plain versions). At
    3 yr x 180 x 360: config 1 (no merging) with boolean and integer outputs
    bit-identical and floats within 1e-5, then again with the two-level event
@@ -78,8 +80,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
    and give dense ids; its walls, stages, launches and the peaks after
    detect and over the track are printed. Each path is run with the
    kernels' launch counts set to 0 just before it and read just after, and
-   must have launched the kernels it labels on (config 7, detect alone,
-   labels nothing);
+   must have launched the kernels it labels on and none of the others
+   (config 5 the mesh kernels, the gridded paths ``ccl_step`` and
+   ``pointer_jump``; config 7, detect alone, labels nothing);
 6. the kernels on the paths' own labels: the area filter's fixpoint on
    config 4's field, run by hand with each launch timed, and at its
    iterations 1, 6 and 12 the fused step and the jump timed beside the
@@ -89,17 +92,25 @@ Phases, each of which raises (and so exits nonzero) on failure:
    which the fused iteration must beat; then config 1's 3-D fixpoint on its
    own input, its step timed at iterations 1, 6 and 12, and at 6 beside its
    plain version and ``max_pool3d``; then the mesh fixpoint on config 5's
-   field, ``graph_step`` at iterations 1, 4 and 8 held against its plain
-   version on those labels (bit-identical) and timed beside its bound, and
-   at 4 beside its plain version, the gather of the table's rows and the
-   hook's ``scatter_reduce_``; then the six-year field's filter fixpoint by
+   field, as numbered and with its cells renumbered by a random permutation
+   from ``--seed`` (the same component counts): the list of active cells,
+   each launch and the fixpoint's wall beside its bound, and at iterations
+   1, 4 and 8 ``graph_step`` and ``graph_jump`` held against their plain
+   versions on those labels (bit-identical) and timed beside their bounds,
+   at 4 beside their plain versions, ``index_select`` of the table's rows,
+   ``torch.take`` of the listed cells' neighbours and of the jump's targets
+   and the hook's ``scatter_reduce_``; then a (2100, 1,048,352) field past
+   2**31 cells, empty but for slices 2040-2099, which hold config 5's first
+   60: labelled as those slices alone, bit for bit, and by hand with both
+   mesh kernels held against their plain versions at every iteration; then
+   the six-year field's filter fixpoint by
    hand, at iteration 6 its fused step and jump held against their plain
    versions (bit-identical) on the slices that hold cells past 2**31, where
    slice bases and hook targets need 64-bit offsets, then timed beside their
    byte bounds and ``max_pool2d`` on the same labels.
 
 The line before the last is a JSON object with each kernel's launches on the
-path that runs it (config 4; config 5 for ``graph_step``) and on every path
+path that runs it (config 4; config 5 for the mesh kernels) and on every path
 (``launches_by_path``), its largest
 difference from the plain version, and its time, its plain version's, its
 bound and the nearest PyTorch call's on that path's own labels (phase 6);
@@ -399,18 +410,23 @@ class Split:
 
 def fused_fixpoint(data: torch.Tensor, depth3: bool, split: Split, keep=(), neighbours=None):
     """A CCL fixpoint of ``ops/label.py`` run by hand, each launch timed
-    into ``split``: on a (T, H, W) grid, or with ``neighbours`` (the
-    symmetrised (K, C) table) on a (T, C) mesh; returns (iterations,
-    {k: (labels, out) before step k} for k in ``keep``)."""
-    from marex_tpu_torch.ops.graph_step import graph_step
+    into ``split``: on a (T, H, W) grid (``ccl_step``, ``pointer_jump``), or
+    with ``neighbours`` (the symmetrised (K, C) table) on a (T, C) mesh (the
+    list of active cells, ``active_cells``, then ``graph_step`` and
+    ``graph_jump`` over it); returns (iterations, {k: (labels, out) before
+    step k} for k in ``keep``)."""
+    from marex_tpu_torch.ops.graph_step import active_cells, graph_jump, graph_step
     from marex_tpu_torch.ops.min_stencil import ccl_step, pointer_jump
 
     T = data.shape[0]
     S = data.numel() if depth3 else data[0].numel()
     if neighbours is None:
         name, step = "ccl_step", lambda: ccl_step(a, data, b, depth3=depth3)
+        jump_name, jump = "pointer_jump", lambda: pointer_jump(b, S, out=a)
     else:
-        name, step = "graph_step", lambda: graph_step(a, data, neighbours, b)
+        active = split.time("active_cells", lambda: active_cells(data))
+        name, step = "graph_step", lambda: graph_step(a, active, neighbours, b)
+        jump_name, jump = "graph_jump", lambda: graph_jump(b, active, out=a)
     idx = torch.arange(S, dtype=torch.int32, device=data.device)
     a = (idx if depth3 else idx.repeat(T)).view(data.shape).masked_fill_(~data, BIG)
     b = torch.full_like(a, BIG)
@@ -424,7 +440,7 @@ def fused_fixpoint(data: torch.Tensor, depth3: bool, split: Split, keep=(), neig
         split.settle()
         if not changed:
             return it, snaps
-        split.time("pointer_jump", lambda: pointer_jump(b, S, out=a))
+        split.time(jump_name, jump)
     raise AssertionError("CCL fixpoint did not converge in 199 iterations")
 
 
@@ -1238,19 +1254,29 @@ def regional_kwargs(ny: int, merge: bool = False) -> dict:
     return kw
 
 
-def graph_step_against_plain(g: torch.Generator, seed: int) -> int:
-    """Phase 3, the mesh step against its plain version, bit-identical in
-    ``out`` and the flag: on the triangle-pair mesh's table (as given and
-    symmetrised, small and at config 5's 1,048,352 cells) and on random
-    directed tables after symmetrising (K' > 3, ``-1`` entries, ragged C),
-    with ``out`` BIG-filled and stale, slice counts that end inside a chunk
-    of slices; at 1,048,352 cells also 67 slices and config 5's own 730,
-    where each block walks several chunks of slices (about 3 and 31; on the
-    smaller tables a block has one chunk); and the whole fixpoint's labels,
-    counts and iterations against the CPU's. Returns (number of checks,
-    largest difference seen)."""
-    from marex_tpu_torch.ops.graph_step import neighbour_min_plain
+def graph_step_against_plain(g: torch.Generator, seed: int):
+    """Phase 3, the mesh kernels against their plain versions, bit-identical:
+    the step over the list of active cells in ``out`` and the flag, against
+    its plain version and the dense step; the jump over the list against its
+    plain version and the whole-field jump, on labels whose unlisted cells
+    hold BIG, and leaving a stale output's unlisted cells untouched. On the
+    triangle-pair mesh's table (as given and symmetrised, small and at
+    config 5's 1,048,352 cells) and on random directed tables after
+    symmetrising (K' > 3, ``-1`` entries, ragged C), with ``out`` BIG-filled
+    and stale, at 1,048,352 cells up to config 5's own 730 slices; and the
+    whole fixpoint's labels, counts and iterations against the CPU's. The
+    list of active cells of every mask (and of masks that start off a 16-byte
+    boundary or end inside a tile) against its plain version. Returns (number
+    of checks, {kernel: largest difference})."""
+    from marex_tpu_torch.ops.graph_step import (
+        active_cells,
+        active_cells_plain,
+        graph_jump,
+        graph_jump_plain,
+        neighbour_min_plain,
+    )
     from marex_tpu_torch.ops.label import label_slices_unstructured
+    from marex_tpu_torch.ops.min_stencil import pointer_jump_plain
     from marex_tpu_torch.track import _symmetrize_neighbours
 
     rng = np.random.default_rng(seed)
@@ -1268,24 +1294,50 @@ def graph_step_against_plain(g: torch.Generator, seed: int) -> int:
         ("one cell", np.full((3, 1), -1, np.int32), (2,)),
         (f"tri_mesh({MESH_CELLS}) symmetrised", symmetrised(MESH_CELLS), (11, 67, MESH_DAYS)),
     ]
-    n_checks = worst = 0
+    n_checks = 0
+    worst = {"active_cells": 0, "graph_step": 0, "graph_jump": 0}
     for name, table, slice_counts in tables:
         nb = torch.from_numpy(table).cuda()
         C = nb.shape[1]
         for T in slice_counts:
             for density in (0.1, 0.6):
                 data = torch.rand((T, C), generator=g, device="cuda") < density
+                active = active_cells(data)
+                flat = data.view(-1)
+                diff = max(max_abs_diff(active, active_cells_plain(data)),  # off a 16-byte boundary, and ragged
+                           max_abs_diff(active_cells(flat[1:]), active_cells_plain(flat[1:])),
+                           max_abs_diff(active_cells(flat[: max(flat.numel() - 4099, 0)]),
+                                        active_cells_plain(flat[: max(flat.numel() - 4099, 0)])))
+                worst["active_cells"] = max(worst["active_cells"], diff)
+                if diff:
+                    raise AssertionError(f"active_cells {name} T={T} density={density}: max diff {diff}")
+                n_checks += 1
                 lab = torch.randint(0, C, (T, C), generator=g, device="cuda", dtype=torch.int32)
                 lab.masked_fill_(~data & (torch.rand((T, C), generator=g, device="cuda") < 0.5), BIG)
                 m = neighbour_min_plain(lab, data, nb)
                 up = torch.randint(0, 3, (T, C), generator=g, device="cuda", dtype=torch.int32)
                 for what, out0 in (("BIG", torch.full_like(lab, BIG)), ("stale", torch.where(m >= BIG - 2, m, m + up))):
-                    diff = graph_step_diff(lab, data, nb, out0)
-                    worst = max(worst, diff)
+                    diff = graph_step_diff(lab, active, nb, out0, data)
+                    worst["graph_step"] = max(worst["graph_step"], diff)
                     if diff:
                         raise AssertionError(f"graph_step {name} T={T} density={density} out={what}: max diff {diff}")
                     n_checks += 1
-                del lab, m, up, out0
+                del m, up, out0
+                # the jump on the fixpoint's invariant: unlisted cells BIG in both buffers
+                b = lab.masked_fill_(~data, BIG)
+                got = graph_jump(b, active, torch.full_like(b, BIG))
+                diff = max(max_abs_diff(got, pointer_jump_plain(b, C)),
+                           max_abs_diff(got, graph_jump_plain(b, active, torch.full_like(b, BIG))))
+                stale = torch.randint(0, C, (T, C), generator=g, device="cuda", dtype=torch.int32)
+                kept = stale.masked_select(~data)
+                graph_jump(b, active, out=stale)
+                diff = max(diff, max_abs_diff(stale.masked_select(~data), kept),
+                           max_abs_diff(stale.masked_select(data), got.masked_select(data)))
+                worst["graph_jump"] = max(worst["graph_jump"], diff)
+                if diff:
+                    raise AssertionError(f"graph_jump {name} T={T} density={density}: max diff {diff}")
+                n_checks += 1
+                del b, lab, got, stale, kept, active
             # the whole fixpoint: the card's labels, counts and iterations equal the CPU's
             if C <= 30011:
                 lab_g, counts_g, it_g = label_slices_unstructured(data, nb)
@@ -1299,66 +1351,113 @@ def graph_step_against_plain(g: torch.Generator, seed: int) -> int:
     return n_checks, worst
 
 
-def mesh_step_bound_ms(data: torch.Tensor, K: int) -> float:
-    """The least time for one mesh step on this (T, C) field: the mask read
-    for every cell (1 B), the label read and ``out`` written for the active
-    cells (8 B each; the kernel touches nothing else of an inactive cell),
-    and the (K, C) table read once, over the card's memory rate."""
-    T, C = data.shape
-    return bound_ms(T * C + 8 * int(data.sum()) + 4 * K * C)
+def mesh_step_bound_ms(n_active: int, K: int, C: int) -> float:
+    """The least time for one mesh step on a field with ``n_active`` active
+    cells: each one's label read and ``out`` written (8 B; an inactive cell
+    is touched only as a neighbour), and the (K, C) table read once, over
+    the card's memory rate. The jump's is ``bound_ms(8 * n_active)``."""
+    return bound_ms(8 * n_active + 4 * K * C)
 
 
-def graph_step_diff(lab: torch.Tensor, data: torch.Tensor, table: torch.Tensor, out0: torch.Tensor) -> int:
-    """``graph_step`` against ``graph_step_plain`` from copies of ``out0``:
-    the largest difference in ``out`` and in the flag."""
-    from marex_tpu_torch.ops.graph_step import graph_step, graph_step_plain
+def graph_step_diff(lab: torch.Tensor, active: torch.Tensor, table: torch.Tensor, out0: torch.Tensor,
+                    data=None) -> int:
+    """``graph_step`` against ``graph_step_active_plain`` from copies of
+    ``out0``, and with ``data`` (the mask the list was made from) also
+    against the dense ``graph_step_plain``: the largest difference in
+    ``out`` and in the flag."""
+    from marex_tpu_torch.ops.graph_step import graph_step, graph_step_active_plain, graph_step_plain
 
     out_k, out_p = out0.clone(), out0.clone()
-    flag_k = graph_step(lab, data, table, out_k)
-    flag_p = graph_step_plain(lab, data, table, out_p)
-    return max(max_abs_diff(out_k, out_p), abs(int(flag_k) - int(flag_p)))
+    flag_k = int(graph_step(lab, active, table, out_k))
+    diff = max(abs(flag_k - int(graph_step_active_plain(lab, active, table, out_p))), max_abs_diff(out_k, out_p))
+    if data is not None:
+        out_p.copy_(out0)
+        diff = max(diff, abs(flag_k - int(graph_step_plain(lab, data, table, out_p))), max_abs_diff(out_k, out_p))
+    return diff
 
 
-def graph_step_yardsticks(lab: torch.Tensor, data: torch.Tensor, table: torch.Tensor, out0: torch.Tensor,
-                          reps: int) -> dict:
-    """``graph_step``'s plain version, timed from a fresh copy of ``out0``,
-    and the nearest single PyTorch calls (never called by the port): the
-    gather of every table row (``index_select``) and the hook's
-    ``scatter_reduce_`` amin; milliseconds, and the cells the hook scatters."""
-    from marex_tpu_torch.ops.graph_step import graph_step_plain, neighbour_min_plain
+def graph_jump_diff(b: torch.Tensor, active: torch.Tensor, out0: torch.Tensor) -> int:
+    """``graph_jump`` against ``graph_jump_plain`` from copies of ``out0``:
+    the largest difference."""
+    from marex_tpu_torch.ops.graph_step import graph_jump, graph_jump_plain
 
+    return max_abs_diff(graph_jump(b, active, out=out0.clone()), graph_jump_plain(b, active, out0.clone()))
+
+
+def mesh_yardsticks(lab: torch.Tensor, active: torch.Tensor, table: torch.Tensor, out0: torch.Tensor,
+                    hooked: torch.Tensor, reps: int) -> dict:
+    """The mesh kernels' plain versions (the step from a fresh copy of
+    ``out0``, the jump of ``hooked``) and the nearest single PyTorch calls
+    (never called by the port): the dense gather of every table row
+    (``index_select``), the gather of the listed cells' neighbours and of
+    the jump's targets (``torch.take``), the listed cells' labels moved
+    from ``hooked`` into a copy of ``out0`` (``take`` then ``index_put_``),
+    and the hook's ``scatter_reduce_`` amin; milliseconds, and the cells the
+    hook scatters."""
+    from marex_tpu_torch.ops.graph_step import graph_jump_plain, graph_step_active_plain, split_flat
+
+    C = lab.shape[1]
     out = torch.empty_like(out0)
-    t_plain = cuda_ms_fresh(lambda: graph_step_plain(lab, data, table, out), lambda: out.copy_(out0), reps=reps)
-    del out
+    t = dict(step_plain=cuda_ms_fresh(lambda: graph_step_active_plain(lab, active, table, out),
+                                      lambda: out.copy_(out0), reps=reps))
+    t["jump_plain"] = cuda_ms(lambda: graph_jump_plain(hooked, active, out), reps=reps)
     flat = table.clamp_min(0).view(-1).long()
-    t_gather = cuda_ms(lambda: torch.index_select(lab, 1, flat), reps=3)
+    t["index_select"] = cuda_ms(lambda: torch.index_select(lab, 1, flat), reps=3)
     del flat
-    m = neighbour_min_plain(lab, data, table)
-    sidx, src = hook_scatter_inputs(lab, m, lab.shape[1])
-    buf = m.clone().view(-1)
-    t_scatter = cuda_ms_fresh(lambda: buf.scatter_reduce_(0, sidx, src, "amin"), lambda: buf.copy_(m.view(-1)))
-    return dict(plain=t_plain, gather=t_gather, scatter=t_scatter, hooked=sidx.numel())
+    base, c = split_flat(active, C)
+    nbr = table[:, c].long()  # (K, n): the listed cells' neighbours
+    del c
+    idx = (base + nbr.clamp_min(0)).view(-1)
+    t["take_step"] = cuda_ms(lambda: torch.take(lab, idx), reps=3)
+    v = hooked.view(-1)[active]
+    hop = base + torch.where(v != BIG, v, 0)
+    t["take_jump"] = cuda_ms(lambda: torch.take(hooked, hop), reps=3)
+    del v, hop
+    # the listed cells' labels moved from one buffer to the other and nothing
+    # else: what any launch over the list pays for their scatter in the field
+    moved = out0.clone()
+    t["move"] = cuda_ms(lambda: moved.view(-1).index_put_((active,), hooked.view(-1).take(active)), reps=3)
+    del moved
+    r = lab.view(-1)[active]
+    m = torch.take(lab, idx).view(nbr.shape).masked_fill_(nbr < 0, BIG).amin(dim=0).minimum(r)
+    del idx, nbr
+    hook = (m < r) & (r != BIG)
+    sidx, src = base[hook] + r[hook].long(), m[hook]
+    buf = out0.clone().view(-1)
+    t["scatter"] = cuda_ms_fresh(lambda: buf.scatter_reduce_(0, sidx, src, "amin"), lambda: buf.copy_(out0.view(-1)))
+    t["hooked"] = int(sidx.numel())
+    return t
 
 
 def graph_step_random_times(g: torch.Generator) -> None:
-    """Phase 3, the mesh step timed at (64, 1048352) on random labels, from
-    a fresh copy of its output, beside its plain version and the nearest
-    single PyTorch calls (``graph_step_yardsticks``)."""
-    from marex_tpu_torch.ops.graph_step import graph_step
+    """Phase 3, the mesh kernels timed at (64, 1048352), 30 % of the cells
+    active, on random labels: the step from a fresh copy of its output, the
+    jump, each beside its plain version, its bound and the nearest single
+    PyTorch calls (``mesh_yardsticks``)."""
+    from marex_tpu_torch.ops.graph_step import active_cells, graph_jump, graph_step
 
     nb = torch.from_numpy(symmetrised(MESH_CELLS)).cuda()
     K, C = nb.shape
     T = 64
-    lab = torch.randint(0, C, (T, C), generator=g, device="cuda", dtype=torch.int32)
     data = torch.rand((T, C), generator=g, device="cuda") < 0.3
+    active = active_cells(data)
+    lab = torch.randint(0, C, (T, C), generator=g, device="cuda", dtype=torch.int32).masked_fill_(~data, BIG)
     big = torch.full_like(lab, BIG)
     out = torch.empty_like(lab)
-    t_kernel = cuda_ms_fresh(lambda: graph_step(lab, data, nb, out), lambda: out.copy_(big))
-    y = graph_step_yardsticks(lab, data, nb, big, reps=2)
-    t_bound = mesh_step_bound_ms(data, K)
-    print(f"time graph_step at ({T}, {C}), K={K}, random labels: kernel {t_kernel:.4f} ms, plain {y['plain']:.4f} ms, "
-          f"library index_select {y['gather']:.4f} ms, hook scatter_reduce amin {y['scatter']:.4f} ms, bound "
-          f"{t_bound:.4f} ms ({100 * t_bound / t_kernel:.0f} % of it)")
+    t_step = cuda_ms_fresh(lambda: graph_step(lab, active, nb, out), lambda: out.copy_(big))
+    hooked = big.clone()
+    graph_step(lab, active, nb, hooked)
+    t_jump = cuda_ms(lambda: graph_jump(hooked, active, out=out))
+    y = mesh_yardsticks(lab, active, nb, big, hooked, reps=2)
+    n = active.numel()
+    b_step, b_jump = mesh_step_bound_ms(n, K, C), bound_ms(8 * n)
+    print(f"time graph_step at ({T}, {C}), K={K}, {n} active cells, random labels: kernel {t_step:.4f} ms, plain "
+          f"{y['step_plain']:.4f} ms, library index_select {y['index_select']:.4f} ms, take of the neighbours "
+          f"{y['take_step']:.4f} ms, hook scatter_reduce amin {y['scatter']:.4f} ms, bound {b_step:.4f} ms "
+          f"({100 * b_step / t_step:.0f} % of it)")
+    print(f"time graph_jump at ({T}, {C}), random labels: kernel {t_jump:.4f} ms, plain {y['jump_plain']:.4f} ms, "
+          f"library take of the targets {y['take_jump']:.4f} ms, bound {b_jump:.4f} ms ({100 * b_jump / t_jump:.0f} % "
+          f"of it)")
 
 
 def mesh_against_cpu(mx, seed: int, device: str) -> None:
@@ -1628,47 +1727,195 @@ def mesh_filter_input(mx, seed: int):
     return data, torch.from_numpy(tr.neighbours_sym).cuda()
 
 
-def mesh_labels(mx, seed: int) -> dict:
-    """Phase 6, the mesh fixpoint on config 5's own field (the area filter's
-    input at 2 yr x 1,048,352 cells, through the entry points), run by hand
-    with each launch timed; at its iterations 1, 4 and 8 (as far as it gets)
-    ``graph_step`` held against its plain version on those labels and that
-    stale output (bit-identical), and timed from a fresh copy of its output
-    beside its bound; at the middle one also beside its plain version and
-    the nearest single PyTorch calls (``graph_step_yardsticks``). Returns the
-    kernel's JSON fields."""
-    from marex_tpu_torch.ops.graph_step import graph_step
+def renumbered(data: torch.Tensor, table: torch.Tensor, seed: int):
+    """A mesh's field and symmetrised table with its cells renumbered by a
+    random permutation from ``seed`` (new cell j is old cell perm[j]): the
+    same components, numbered unlike a lattice."""
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    perm = torch.randperm(table.shape[1], generator=g).to(table.device)
+    inv = torch.argsort(perm).int()
+    cols = table[:, perm]
+    return data[:, perm].contiguous(), torch.where(cols >= 0, inv[cols.clamp_min(0).long()], -1).contiguous()
 
-    data, table = mesh_filter_input(mx, seed)
+
+def mesh_fixpoint_labels(data: torch.Tensor, table: torch.Tensor, what: str) -> dict:
+    """Phase 6, the mesh fixpoint on one field, run by hand with each launch
+    timed: the list of active cells (``active_cells``), every ``graph_step``
+    and ``graph_jump``, the fixpoint's wall and its bound (the mask read
+    once, 8 B an active cell a step and a jump, the table once). At its
+    iterations 1, 4 and 8 (as far as it gets) both kernels held against
+    their plain versions on those labels (bit-identical; the jump also
+    against the whole-field jump) and timed beside their bounds; at the
+    middle one also beside their plain versions and the nearest single
+    PyTorch calls (``mesh_yardsticks``). The list of active cells against
+    its plain version and timed beside it, ``torch.nonzero`` and its bound
+    (the mask read once, 8 B an entry written). Returns the kernels' JSON
+    fields and the largest differences."""
+    from marex_tpu_torch.ops.graph_step import active_cells, active_cells_plain, graph_jump, graph_step
+    from marex_tpu_torch.ops.min_stencil import pointer_jump_plain
+
+    T, C = data.shape
     K = table.shape[0]
     split = Split()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     iters, snaps = fused_fixpoint(data, False, split, keep=(1, 4, 8), neighbours=table)
-    print(f"mesh fixpoint on config 5's field ({int(data.sum())} active cells of {data.numel()}, K={K}): {iters} "
-          f"iterations, wall {time.perf_counter() - t0:.4f} s; summed launch ms {json.dumps(split.ms)}")
+    wall = time.perf_counter() - t0
+    active = active_cells(data)
+    n = active.numel()
+    err = {"active_cells": max_abs_diff(active, active_cells_plain(data)), "graph_step": 0, "graph_jump": 0}
+    t_list = cuda_ms(lambda: active_cells(data), reps=5)
+    t_list_plain = cuda_ms(lambda: active_cells_plain(data), reps=3)
+    t_nonzero = cuda_ms(lambda: data.view(-1).nonzero(), reps=3)
+    b_list = bound_ms(T * C + 8 * n)
+    # the 32-byte sectors of a (T, C) int32 field that hold active cells: what
+    # a launch touches of each label buffer, where the bound counts 4 B a cell
+    sectors = torch.unique_consecutive(active >> 3).numel()
+    tiles = torch.unique_consecutive(active >> 12).numel()  # the compaction's 4096-cell tiles that it reads again
+    print(f"active_cells {what}: == plain version (nonzero); {t_list:.4f} ms, plain {t_list_plain:.4f} ms, "
+          f"torch.nonzero {t_nonzero:.4f} ms, bound {b_list:.4f} ms ({100 * b_list / t_list:.0f} % of it), "
+          f"{tiles} of {-(-T * C // 4096)} tiles active; the "
+          f"{n} active cells lie in {sectors} 32-byte sectors of a label field ({32 * sectors / (4 * n):.2f} bytes "
+          f"moved a byte used): a launch that reads one label buffer and writes the other at them, and reads the "
+          f"list, moves {bound_ms(8 * n + 64 * sectors):.4f} ms of bytes")
+    t_bound = bound_ms(T * C + 8 * n * (2 * iters - 1) + 4 * K * C)
+    launched = sum(split.ms.values())
+    print(f"mesh fixpoint on config 5's field {what} ({n} active cells of {data.numel()}, K={K}): {iters} iterations, "
+          f"wall {wall:.4f} s; summed launch ms {json.dumps(split.ms)}, {launched:.4f} ms in all against the "
+          f"fixpoint's bound {t_bound:.4f} ms ({100 * t_bound / launched:.0f} % of it)")
     print(f"  each launch (ms): {json.dumps(split.each)}")
     out = torch.empty_like(data, dtype=torch.int32)
-    t_bound = mesh_step_bound_ms(data, K)
+    b_step, b_jump = mesh_step_bound_ms(n, K, C), bound_ms(8 * n)
     middle = sorted(snaps)[len(snaps) // 2]
-    result = {}
+    result = {"active_cells": dict(ms=t_list, plain_ms=t_list_plain, bound_ms=b_list, bound_by="bytes",
+                                   library_ms=t_nonzero)}
     for k in sorted(snaps):
         a, b = snaps.pop(k)
-        diff = graph_step_diff(a, data, table, b)
-        if diff:
-            raise AssertionError(f"graph_step on config 5's labels at iteration {k}: max diff {diff} from the plain version")
-        t_step = cuda_ms_fresh(lambda: graph_step(a, data, table, out), lambda: out.copy_(b))
-        line = (f"mesh iteration {k}: graph_step == plain version at {tuple(a.shape)}; {t_step:.4f} ms, bound "
-                f"{t_bound:.4f} ms ({100 * t_bound / t_step:.0f} % of it)")
+        err["graph_step"] = max(err["graph_step"], graph_step_diff(a, active, table, b))
+        hooked = b.clone()
+        graph_step(a, active, table, hooked)  # the jump's input
+        jumped = graph_jump(hooked, active, out=a.clone())
+        err["graph_jump"] = max(err["graph_jump"], graph_jump_diff(hooked, active, a),
+                                max_abs_diff(jumped, pointer_jump_plain(hooked, C)))
+        del jumped
+        if any(err.values()):
+            raise AssertionError(f"config 5's labels {what} at iteration {k}: kernels against their plain versions {err}")
+        t_step = cuda_ms_fresh(lambda: graph_step(a, active, table, out), lambda: out.copy_(b))
+        t_jump = cuda_ms(lambda: graph_jump(hooked, active, out=out), reps=5)
+        line = (f"mesh iteration {k} {what}: graph_step and graph_jump == plain versions at {tuple(a.shape)}; "
+                f"graph_step {t_step:.4f} ms, bound {b_step:.4f} ms ({100 * b_step / t_step:.0f} % of it); "
+                f"graph_jump {t_jump:.4f} ms, bound {b_jump:.4f} ms ({100 * b_jump / t_jump:.0f} % of it)")
         if k == middle:
-            y = graph_step_yardsticks(a, data, table, b, reps=1)
-            line += (f"; plain {y['plain']:.4f} ms; library index_select of the {K} table rows {y['gather']:.4f} ms; "
-                     f"hook scatter_reduce amin {y['scatter']:.4f} ms ({y['hooked']} cells with m < lab)")
-            result = dict(ms=t_step, plain_ms=y["plain"], bound_ms=t_bound, bound_by="bytes", library_ms=y["gather"])
+            y = mesh_yardsticks(a, active, table, b, hooked, reps=1)
+            line += (f"; plain step {y['step_plain']:.4f} ms, plain jump {y['jump_plain']:.4f} ms; library "
+                     f"index_select of the {K} table rows {y['index_select']:.4f} ms, take of the listed cells' "
+                     f"neighbours {y['take_step']:.4f} ms, take of the jump's targets {y['take_jump']:.4f} ms; the "
+                     f"listed cells' labels moved between the buffers (take, index_put_) {y['move']:.4f} ms; hook "
+                     f"scatter_reduce amin {y['scatter']:.4f} ms ({y['hooked']} cells with m < lab)")
+            result["graph_step"] = dict(ms=t_step, plain_ms=y["step_plain"], bound_ms=b_step, bound_by="bytes",
+                                        library_ms=y["take_step"])
+            result["graph_jump"] = dict(ms=t_jump, plain_ms=y["jump_plain"], bound_ms=b_jump, bound_by="bytes",
+                                        library_ms=y["take_jump"])
         print(line)
-        del a, b
+        del a, b, hooked
         torch.cuda.empty_cache()
-    return result
+    return result, err
+
+
+def mesh_past_2_31(data: torch.Tensor, table: torch.Tensor, T_long: int = 2100, first: int = 2040) -> dict:
+    """Phase 6 past 2**31 cells: a (``T_long``, C) field, empty but for
+    slices ``first``.. (slice 2048 holds cell 2**31 - 1), which hold the
+    first ``T_long - first`` slices of ``data``. ``label_slices_unstructured``
+    must give them the labels, counts and iterations, bit for bit, that it
+    gives those slices alone; then the fixpoint by hand, each step and jump
+    held against its plain version on those slices, whose list entries,
+    slice bases and hook targets need 64 bits, and the list against its
+    plain version. Returns the largest differences."""
+    from marex_tpu_torch.ops.graph_step import (
+        active_cells,
+        active_cells_plain,
+        graph_jump,
+        graph_jump_plain,
+        graph_step,
+        graph_step_active_plain,
+    )
+    from marex_tpu_torch.ops.label import label_slices_unstructured
+
+    n_sl = T_long - first
+    C = data.shape[1]
+    part = data[:n_sl].contiguous()
+    want_lab, want_counts, want_it = label_slices_unstructured(part, table)
+    field = torch.zeros((T_long, C), dtype=torch.bool, device=data.device)
+    field[first:] = part
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lab, counts, iters = label_slices_unstructured(field, table)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    same = (torch.equal(lab[first:], want_lab) and torch.equal(counts[first:], want_counts) and iters == want_it
+            and not bool(lab[:first].any()) and not bool(counts[:first].any()))
+    if not same:
+        raise AssertionError(f"mesh CCL past 2**31 cells: slices {first}.. differ from the {n_sl} slices alone "
+                             f"({iters} vs {want_it} iterations)")
+    print(f"mesh CCL on ({T_long}, {C}) ({field.numel()} cells; slices {first}..{T_long - 1} hold config 5's first "
+          f"{n_sl}, {int(part.sum())} active cells): labels, counts and {iters} iterations == the {n_sl} slices alone; "
+          f"wall {wall:.4f} s")
+    del lab, counts, want_lab, want_counts
+    torch.cuda.empty_cache()
+    # by hand: both kernels on the whole field against their plain versions on slices first.. alone
+    active = active_cells(field)
+    err = {"active_cells": max_abs_diff(active, active_cells_plain(field)), "graph_step": 0, "graph_jump": 0}
+    local = active - first * C
+    a = torch.arange(C, dtype=torch.int32, device=data.device).repeat(T_long).view(T_long, C).masked_fill_(~field, BIG)
+    b = torch.full_like(a, BIG)
+    lowered = 0
+    for it in range(1, want_it + 1):
+        before = b[first:].clone()
+        want_b = before.clone()
+        flag_p = int(graph_step_active_plain(a[first:], local, table, want_b))
+        flag = int(graph_step(a, active, table, b))
+        lowered += int((want_b != before).sum())
+        err["graph_step"] = max(err["graph_step"], abs(flag - flag_p), max_abs_diff(b[first:], want_b))
+        del before, want_b
+        if not flag:
+            break
+        want_a = graph_jump_plain(b[first:], local, a[first:].clone())
+        graph_jump(b, active, out=a)
+        err["graph_jump"] = max(err["graph_jump"], max_abs_diff(a[first:], want_a))
+        del want_a
+    if any(err.values()) or flag or it != want_it or not lowered:
+        raise AssertionError(f"mesh kernels past 2**31 cells against their plain versions: {err}, {it} iterations "
+                             f"(want {want_it}), {lowered} cells lowered")
+    print(f"mesh fixpoint by hand on ({T_long}, {C}): active_cells, graph_step and graph_jump bit-identical to their "
+          f"plain versions (tolerance 0) on slices {first}..{T_long - 1} at each of {it} iterations (list entries "
+          f"{int(active[0])}..{int(active[-1])}; slice 2048 holds cell 2**31 - 1)")
+    del field, a, b, active, local
+    torch.cuda.empty_cache()
+    return err
+
+
+def mesh_labels(mx, seed: int):
+    """Phase 6, the mesh fixpoint on config 5's own field (the area filter's
+    input at 2 yr x 1,048,352 cells, through the entry points) as numbered
+    and with its cells renumbered by a random permutation from ``seed``
+    (``mesh_fixpoint_labels``; both numberings give the same component
+    counts), then past 2**31 cells (``mesh_past_2_31``). Returns the
+    kernels' JSON fields (as numbered) and the largest differences."""
+    from marex_tpu_torch.ops.label import label_slices_unstructured
+
+    data, table = mesh_filter_input(mx, seed)
+    result, err = mesh_fixpoint_labels(data, table, "as numbered")
+    counts = label_slices_unstructured(data, table)[1]
+    data_p, table_p = renumbered(data, table, seed)
+    _, err_p = mesh_fixpoint_labels(data_p, table_p, "renumbered")
+    counts_p = label_slices_unstructured(data_p, table_p)[1]
+    if not torch.equal(counts, counts_p):
+        raise AssertionError("config 5's field renumbered: per-slice component counts differ from the field as numbered")
+    del data_p, table_p
+    torch.cuda.empty_cache()
+    err_long = mesh_past_2_31(data, table)
+    return result, {k: max(err[k], err_p[k], err_long[k]) for k in err}
 
 
 def main() -> int:
@@ -1689,7 +1936,7 @@ def main() -> int:
 
     import marex_tpu_torch as mx
     from marex_tpu_torch import _cuda_build, _native
-    from marex_tpu_torch.ops.graph_step import graph_step
+    from marex_tpu_torch.ops.graph_step import active_cells, graph_jump, graph_step
     from marex_tpu_torch.ops.min_stencil import (
         ccl_step,
         ccl_step_plain,
@@ -1829,10 +2076,11 @@ def main() -> int:
     del lab, data, lab3, out, big, xp, xp3, flat, gidx
     torch.cuda.empty_cache()
 
-    # the mesh step: against its plain version, then timed at (64, 1048352)
-    n_graph, err["graph_step"] = graph_step_against_plain(g, args.seed)
-    print(f"graph_step: {n_graph} checks bit-identical to the plain version (tolerance 0), up to config 5's own "
-          f"shape ({MESH_DAYS} slices of the mesh of {MESH_CELLS} cells asked for)")
+    # the mesh kernels: against their plain versions, then timed at (64, 1048352)
+    n_graph, mesh_err = graph_step_against_plain(g, args.seed)
+    err.update(mesh_err)
+    print(f"active_cells, graph_step, graph_jump: {n_graph} checks bit-identical to the plain versions (tolerance 0), up to config "
+          f"5's own shape ({MESH_DAYS} slices of the mesh of {MESH_CELLS} cells asked for)")
     graph_step_random_times(g)
     torch.cuda.empty_cache()
 
@@ -1844,43 +2092,57 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. the paths at full size -----------------------------------------
-    kernels = {"ccl_step": ccl_step, "pointer_jump": pointer_jump, "graph_step": graph_step}
+    kernels = {"ccl_step": ccl_step, "pointer_jump": pointer_jump, "active_cells": active_cells,
+               "graph_step": graph_step, "graph_jump": graph_jump}
+    mesh_kernels = ("active_cells", "graph_step", "graph_jump")
     launches, refs = main_paths(mx, 720, 1440, args.seed, kernels, "cuda")
     launches.update(mesh_and_regional_paths(mx, args.seed, kernels))
     launches.update(streamed_paths(mx, refs, kernels))
     del refs
     torch.cuda.empty_cache()
     launches[f"config 1 at {LONG_DAYS} days"], long_tr = long_nomerge_path(mx, args.seed, kernels)
-    # the mesh path labels on graph_step, every gridded tracking path on
-    # ccl_step; all jump. Config 7 is detect alone and labels nothing
+    # the mesh path labels on graph_step and graph_jump and launches no grid
+    # kernel; every gridded tracking path on ccl_step and pointer_jump, and
+    # launches no mesh kernel. Config 7 is detect alone and labels nothing
     for path, counts in launches.items():
         if path == "config 7":
             continue
-        for k in ("graph_step" if path == "config 5" else "ccl_step", "pointer_jump"):
+        grid = ("ccl_step", "pointer_jump")
+        runs, never = (mesh_kernels, grid) if path == "config 5" else (grid, mesh_kernels)
+        for k in runs:
             if counts[k] <= 0:
                 raise AssertionError(f"{k}, a kernel of {path}, was never launched there: {counts}")
+        for k in never:
+            if counts[k]:
+                raise AssertionError(f"{k}, not a kernel of {path}, was launched there: {counts}")
     torch.cuda.empty_cache()
 
     # ---- 6. the kernels on the paths' own labels -----------------------------
     label_times = main_path_labels(mx, args.seed)
     torch.cuda.empty_cache()
-    label_times["graph_step"] = mesh_labels(mx, args.seed)
+    mesh_times, mesh_err = mesh_labels(mx, args.seed)
+    label_times.update(mesh_times)
+    for k, diff in mesh_err.items():
+        err[k] = max(err[k], diff)
     torch.cuda.empty_cache()
     for k, diff in long_path_labels(long_tr).items():
         err[k] = max(err[k], diff)
     del long_tr
 
-    # each kernel's launches on the path that runs it: the merge path, and for the mesh step config 5
-    source = {"ccl_step": "min_stencil.cu", "pointer_jump": "min_stencil.cu", "graph_step": "graph_step.cu"}
+    # each kernel's launches on the path that runs it: the merge path, and for the mesh kernels config 5
+    source = {"ccl_step": "min_stencil.cu", "pointer_jump": "min_stencil.cu", "active_cells": "graph_step.cu",
+              "graph_step": "graph_step.cu", "graph_jump": "graph_step.cu"}
+    # the list takes the place of the mask that _unstr_block's step applies to every cell
     replaces = {"ccl_step": "marex_tpu/ops/pallas_kernels.py:60", "pointer_jump": "marex_tpu/ops/label.py:130",
-                "graph_step": "marex_tpu/ops/label.py:307"}
+                "active_cells": "marex_tpu/ops/label.py:307", "graph_step": "marex_tpu/ops/label.py:307",
+                "graph_jump": "marex_tpu/ops/label.py:130"}
     print(json.dumps({"kernels": [
         {
             "name": k,
             "route": "cuda",
             "source": f"marex_tpu_torch/csrc/{source[k]}",
             "replaces": replaces[k],
-            "launches": launches["config 5" if k == "graph_step" else "merge path (config 4)"][k],
+            "launches": launches["config 5" if k in mesh_kernels else "merge path (config 4)"][k],
             "launches_by_path": {path: counts[k] for path, counts in launches.items()},
             "max_abs_err": err[k],
             **label_times[k],

@@ -97,6 +97,14 @@ def kernel_library() -> ctypes.CDLL:
     lib.marex_ccl_step.restype = i
     lib.marex_pointer_jump.argtypes = [p, p, ll, ll, p]
     lib.marex_pointer_jump.restype = i
-    lib.marex_graph_step.argtypes = [p, p, p, p, p, i, i, i, p]
+    lib.marex_graph_step.argtypes = [p, p, ll, p, p, p, i, i, p]
     lib.marex_graph_step.restype = i
+    lib.marex_graph_jump.argtypes = [p, p, ll, p, i, p]
+    lib.marex_graph_jump.restype = i
+    lib.marex_active_tiles.argtypes = [ll]
+    lib.marex_active_tiles.restype = ll
+    lib.marex_count_active.argtypes = [p, ll, p, p]
+    lib.marex_count_active.restype = i
+    lib.marex_write_active.argtypes = [p, ll, p, p, p]
+    lib.marex_write_active.restype = i
     return lib

@@ -24,7 +24,10 @@ of the cell its old label named) and one pointer jump, until the step's
 flag says that nothing changes. Two label buffers ping-pong with no copy:
 the step reads A and lowers B by ``atomicMin`` (B always holds a field the
 next step's minimum can only lower, ``csrc/min_stencil.cu``), the jump
-reads B and writes A. A
+reads B and writes A. On a grid both kernels walk the whole field; on a
+mesh both walk the list of active cells, made once a fixpoint
+(``graph_step.active_cells``), and inactive cells stay BIG in both buffers
+from the start. A
 component's converged label is the minimum flat index of its cells, which
 is unique, so any sound propagation schedule ends at the
 reference's labels bit for bit. The hook takes the place of the reference's
@@ -43,7 +46,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from ..exceptions import TrackingError
-from .graph_step import graph_step
+from .graph_step import active_cells, graph_jump, graph_step
 from .min_stencil import BIG, ccl_step, pointer_jump
 
 MAX_ITERS_2D = 4096
@@ -56,21 +59,21 @@ _CHUNK_CELLS = 64 * 1024 * 1024
 def _fixpoint(
     start: List[torch.Tensor],
     step: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
-    slice_size: int,
+    jump: Callable[[torch.Tensor, torch.Tensor], object],
     max_iters: int,
     what: str,
 ) -> Tuple[torch.Tensor, int]:
-    """Iterate the fused step ``step(labels, out) -> flag`` and the jump (per
-    ``slice_size`` flat cells) from the labels in the one-element list
-    ``start`` until the step's flag says that they stop changing; returns
-    (labels, iterations). The list is emptied, so the caller holds no
-    reference that would keep the initial field alive through the loop."""
+    """Iterate the fused step ``step(labels, out) -> flag`` and the jump
+    ``jump(out, labels)`` from the labels in the one-element list ``start``
+    until the step's flag says that they stop changing; returns (labels,
+    iterations). The list is emptied, so the caller holds no reference that
+    would keep the initial field alive through the loop."""
     a = start.pop()
     b = torch.full_like(a, BIG)
     for it in range(1, max_iters + 1):
         if not step(a, b).item():
             return a, it
-        pointer_jump(b, slice_size, out=a)
+        jump(b, a)
     raise TrackingError(
         f"{what} did not converge in {max_iters} iterations",
         suggestions=["This indicates a labelling fault: the propagation must reach a fixpoint"],
@@ -96,7 +99,11 @@ def label_slices_grid_roots(data: torch.Tensor, wrap_x: bool = True) -> Tuple[to
     data = data.contiguous()
     start = [torch.arange(S, dtype=torch.int32, device=data.device).repeat(T).view(T, H, W).masked_fill_(~data, BIG)]
     lab, iters = _fixpoint(
-        start, lambda a, b: ccl_step(a, data, b, depth3=False, wrap_x=wrap_x), S, MAX_ITERS_2D, "per-slice CCL"
+        start,
+        lambda a, b: ccl_step(a, data, b, depth3=False, wrap_x=wrap_x),
+        lambda b, a: pointer_jump(b, S, out=a),
+        MAX_ITERS_2D,
+        "per-slice CCL",
     )
     root_flat = lab.view(T, S)
     # a slice's components are its roots, the cells labelled with their own
@@ -128,7 +135,15 @@ def label_slices_unstructured(data: torch.Tensor, neighbours: torch.Tensor) -> T
     neighbours = neighbours.contiguous()
     idx = torch.arange(C, dtype=torch.int32, device=data.device)
     start = [idx.repeat(T).view(T, C).masked_fill_(~data, BIG)]
-    lab, iters = _fixpoint(start, lambda a, b: graph_step(a, data, neighbours, b), C, MAX_ITERS_MESH, "mesh CCL")
+    active = active_cells(data)
+    lab, iters = _fixpoint(
+        start,
+        lambda a, b: graph_step(a, active, neighbours, b),
+        lambda b, a: graph_jump(b, active, out=a),
+        MAX_ITERS_MESH,
+        "mesh CCL",
+    )
+    del active  # up to 8 B a cell: free it before the relabel
     # a component's id is the rank of its root (the cell labelled with its own
     # index) among its slice's roots; in place over the root labels
     counts = torch.empty(T, dtype=torch.int64, device=data.device)
@@ -211,7 +226,13 @@ def label_spacetime_roots(data: torch.Tensor, wrap_x: bool = True) -> Tuple[torc
     # two label fields live at once (4.5 GB each at production size)
     data = data.contiguous()
     start = [torch.arange(N, dtype=torch.int32, device=data.device).view(T, H, W).masked_fill_(~data, BIG)]
-    lab, iters = _fixpoint(start, lambda a, b: ccl_step(a, data, b, depth3=True, wrap_x=wrap_x), N, MAX_ITERS_3D, "3-D CCL")
+    lab, iters = _fixpoint(
+        start,
+        lambda a, b: ccl_step(a, data, b, depth3=True, wrap_x=wrap_x),
+        lambda b, a: pointer_jump(b, N, out=a),
+        MAX_ITERS_3D,
+        "3-D CCL",
+    )
     return lab.view(N), iters
 
 

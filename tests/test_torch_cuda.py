@@ -29,7 +29,16 @@ from marex_tpu_torch.ops.min_stencil import (
     spacetime_min_plain,
 )
 
-from marex_tpu_torch.ops.graph_step import graph_step, graph_step_plain, neighbour_min_plain
+from marex_tpu_torch.ops.graph_step import (
+    active_cells,
+    active_cells_plain,
+    graph_jump,
+    graph_jump_plain,
+    graph_step,
+    graph_step_active_plain,
+    graph_step_plain,
+    neighbour_min_plain,
+)
 from marex_tpu_torch.track import _symmetrize_neighbours
 
 from .torch_parity import blob_field, merge_dense_field, mesh_merge_field, tri_mesh
@@ -263,26 +272,40 @@ def test_merge_on_cuda_matches_cpu():
     assert g_ev["ID_field"].data.is_cuda and g_tr.dispatch_counts["partition"] > 0
 
 
+def _renumbered(table: np.ndarray, seed: int) -> np.ndarray:
+    """``table`` with its cells renumbered by a seeded permutation (new
+    cell j is old cell perm[j]): a mesh numbered unlike a lattice."""
+    perm = np.random.default_rng(seed).permutation(table.shape[1])
+    inv = np.argsort(perm)
+    cols = table[:, perm]
+    return np.ascontiguousarray(np.where(cols >= 0, inv[np.maximum(cols, 0)], -1), dtype=np.int32)
+
+
 def _mesh_tables():
     rng = np.random.default_rng(1)
     directed = rng.integers(0, 30011, (3, 30011)).astype(np.int32)
     directed[rng.random(directed.shape) < 0.3] = -1
+    icon = _symmetrize_neighbours(tri_mesh(1048576)[0] - 1)
     return {
         "tri_mesh": _symmetrize_neighbours(tri_mesh(4096)[0] - 1),
         "tri_mesh_as_given": tri_mesh(4096)[0] - 1,
         "random_directed_symmetrised": _symmetrize_neighbours(directed),
-        "icon_like_1m": _symmetrize_neighbours(tri_mesh(1048576)[0] - 1),
+        "icon_like_1m": icon,
+        "icon_like_1m_permuted": _renumbered(icon, 3),
     }
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["tri_mesh", "tri_mesh_as_given", "random_directed_symmetrised", "icon_like_1m"])
+@pytest.mark.parametrize(
+    "name", ["tri_mesh", "tri_mesh_as_given", "random_directed_symmetrised", "icon_like_1m", "icon_like_1m_permuted"]
+)
 def test_cuda_graph_step_matches_plain_version(name):
-    """Bit for bit, ``out`` and the flag, from a BIG-filled and a stale
-    ``out >= m``, with slice counts that end inside a chunk of slices; on
-    the 1M-cell table also 67 slices, where each block walks several chunks
-    (on the smaller tables and counts a block has one); on the smaller
-    tables the whole fixpoint equals the CPU's."""
+    """Bit for bit: the list of active cells against ``nonzero``, the step
+    over the list against its plain version and the dense step (``out`` and the flag, from a BIG-filled and
+    a stale ``out >= m``), the jump over the list against its plain version
+    and the whole-field jump; slice counts 1 and 11, and 67 on the 1M-cell
+    tables (as numbered and renumbered); on the smaller tables the whole
+    fixpoint equals the CPU's."""
     _need_cuda()
     g = torch.Generator(device="cuda")
     g.manual_seed(11)
@@ -290,15 +313,25 @@ def test_cuda_graph_step_matches_plain_version(name):
     C = nb.shape[1]
     for T in (1, 11, 67) if C > 100000 else (1, 11):
         data = torch.rand((T, C), generator=g, device="cuda") < 0.5
+        active = active_cells(data)
+        flat = data.view(-1)
+        for mask in (data, flat[1:], flat[: max(flat.numel() - 4099, 0)]):  # off 16-byte alignment, ragged tiles
+            assert torch.equal(active_cells(mask), active_cells_plain(mask)), (name, T)
         lab = torch.randint(0, C, (T, C), generator=g, device="cuda", dtype=torch.int32)
         lab.masked_fill_(~data & (torch.rand((T, C), generator=g, device="cuda") < 0.5), BIG)
         m = neighbour_min_plain(lab, data, nb)
         up = torch.randint(0, 3, (T, C), generator=g, device="cuda", dtype=torch.int32)
         for out in (torch.full_like(lab, BIG), torch.where(m >= BIG - 2, m, m + up)):
-            want = out.clone()
+            want, plain = out.clone(), out.clone()
             flag_want = graph_step_plain(lab, data, nb, want)
-            flag = graph_step(lab, data, nb, out)
+            flag_plain = graph_step_active_plain(lab, active, nb, plain)
+            flag = graph_step(lab, active, nb, out)
             assert torch.equal(out, want) and bool(flag) == bool(flag_want), (name, T)
+            assert torch.equal(out, plain) and bool(flag) == bool(flag_plain), (name, T)
+        b = lab.masked_fill(~data, BIG)
+        jumped = graph_jump(b, active, torch.full_like(b, BIG))
+        assert torch.equal(jumped, pointer_jump_plain(b, C)), (name, T)
+        assert torch.equal(jumped, graph_jump_plain(b, active, torch.full_like(b, BIG))), (name, T)
         if C < 100000:
             lab_g, counts_g, it_g = port_label.label_slices_unstructured(data, nb)
             lab_c, counts_c, it_c = port_label.label_slices_unstructured(data.cpu(), nb.cpu())

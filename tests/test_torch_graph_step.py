@@ -1,8 +1,11 @@
-"""The mesh CCL step of the PyTorch port (``ops/graph_step.py``) on the CPU,
-where it runs its plain version: the neighbour min against the reference's
-gather-min, the fused step's contract (hook, stale ``out``, flag), and the
-fixpoint built on it against ``marex_tpu``'s ``label_slices_unstructured``
-and a ``scipy.sparse.csgraph`` oracle, on symmetric and asymmetric tables."""
+"""The mesh CCL kernels of the PyTorch port (``ops/graph_step.py``) on the
+CPU, where they run their plain versions: the neighbour min against the
+reference's gather-min; the step over the list of active cells against the
+dense step (hook, stale ``out``, flag) and the jump over the list against
+the whole-field jump; the list and the 64-bit split of its flat indices; and
+the fixpoint built on them against ``marex_tpu``'s
+``label_slices_unstructured`` and a ``scipy.sparse.csgraph`` oracle, on
+symmetric and asymmetric tables and on a renumbered mesh."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +18,17 @@ import marex_tpu_torch as port
 from marex_tpu.ops import label as ref_label
 from marex_tpu.track import _symmetrize_neighbours as ref_symmetrize
 from marex_tpu_torch.ops import label as port_label
-from marex_tpu_torch.ops.graph_step import graph_step, graph_step_plain, neighbour_min_plain
+from marex_tpu_torch.ops import graph_step as port_graph_step
+from marex_tpu_torch.ops.graph_step import (
+    active_cells,
+    graph_jump,
+    graph_jump_plain,
+    graph_step,
+    graph_step_active_plain,
+    graph_step_plain,
+    neighbour_min_plain,
+    split_flat,
+)
 from marex_tpu_torch.ops.min_stencil import BIG, hook_plain, pointer_jump_plain
 from marex_tpu_torch.track import _symmetrize_neighbours
 
@@ -95,9 +108,12 @@ def test_step_is_min_hook_and_flag(name, stale):
     out = torch.full_like(lab, BIG)
     if stale:
         out = torch.where(m >= BIG - 2, m, m + torch.randint(0, 3, m.shape, generator=g, dtype=torch.int32))
-    flag = graph_step(lab, data, sym, out)  # a CPU tensor takes the plain version
+    dense = out.clone()
+    flag = graph_step(lab, active_cells(data), sym, out)  # a CPU tensor takes the plain version
     assert_same(hook_plain(lab, m, C), out, "hooked field")
     assert int(flag) == int(bool(((m < lab) & data).any()))
+    assert int(graph_step_plain(lab, data, sym, dense)) == int(flag)
+    assert_same(dense, out, "step over the list vs the dense step")
     # converged labels: nothing falls, the flag is 0, out is the labels
     roots = torch.where(data, lab, BIG)
     for _ in range(200):
@@ -165,8 +181,8 @@ def test_fixpoint_raises_at_its_cap(monkeypatch):
     [
         (dict(lab=lambda x: x.long()), TypeError),
         (dict(lab=lambda x: x[None]), ValueError),
-        (dict(data=lambda x: x.int()), TypeError),
-        (dict(data=lambda x: x[:, :-1]), ValueError),
+        (dict(active=lambda x: x.int()), TypeError),
+        (dict(active=lambda x: x.view(2, -1)), ValueError),
         (dict(nb=lambda x: x.long()), TypeError),
         (dict(nb=lambda x: x[:, :-1]), ValueError),
         (dict(nb=lambda x: x.t().contiguous().t()), ValueError),
@@ -176,9 +192,144 @@ def test_fixpoint_raises_at_its_cap(monkeypatch):
 )
 def test_wrapper_refuses_what_the_kernel_does_not_take(change, error):
     C = 10
-    args = dict(lab=torch.zeros((2, C), dtype=torch.int32), data=torch.ones((2, C), dtype=torch.bool),
+    args = dict(lab=torch.zeros((2, C), dtype=torch.int32), active=torch.arange(2 * C),
                 nb=torch.zeros((3, C), dtype=torch.int32), out=torch.zeros((2, C), dtype=torch.int32))
     for key, fn in change.items():
         args[key] = fn(args[key])
     with pytest.raises(error):
-        graph_step(args["lab"], args["data"], args["nb"], args["out"])
+        graph_step(args["lab"], args["active"], args["nb"], args["out"])
+
+
+@pytest.mark.parametrize(
+    "change, error",
+    [
+        (dict(b=lambda x: x.long()), TypeError),
+        (dict(active=lambda x: x.int()), TypeError),
+        (dict(active=lambda x: x[::2]), ValueError),
+        (dict(out=lambda x: x[:1]), ValueError),
+        (dict(out="b"), ValueError),
+    ],
+)
+def test_jump_wrapper_refuses_what_the_kernel_does_not_take(change, error):
+    C = 10
+    args = dict(b=torch.zeros((2, C), dtype=torch.int32), active=torch.arange(2 * C),
+                out=torch.zeros((2, C), dtype=torch.int32))
+    for key, fn in change.items():
+        args[key] = args[fn] if isinstance(fn, str) else fn(args[key])
+    with pytest.raises(error):
+        graph_jump(args["b"], args["active"], args["out"])
+
+
+def test_cpu_calls_launch_nothing():
+    sym = torch.from_numpy(TABLES["tri_mesh"])
+    data = torch.ones((2, sym.shape[1]), dtype=torch.bool)
+    before = (graph_step.launch_count, graph_jump.launch_count)
+    port_label.label_slices_unstructured(data, sym)
+    assert (graph_step.launch_count, graph_jump.launch_count) == before
+
+
+@pytest.mark.parametrize("name", list(TABLES))
+def test_step_on_the_list_equals_the_dense_step_on_any_labels(name):
+    """With labels left at inactive cells too (the dense step reads them
+    only as neighbours, as the step over the list does), and hooks aimed at
+    inactive cells: ``out`` and the flag equal the dense step's, and the
+    plain version over the list is what the wrapper runs."""
+    sym = torch.from_numpy(TABLES[name])
+    C = sym.shape[1]
+    g = torch.Generator().manual_seed(5)
+    for T, density in ((1, 0.0), (3, 0.3), (5, 1.0)):
+        data = torch.rand((T, C), generator=g) < density
+        lab = torch.randint(0, C, (T, C), generator=g, dtype=torch.int32)
+        lab.masked_fill_(torch.rand((T, C), generator=g) < 0.2, BIG)
+        out0 = torch.full_like(lab, BIG)
+        want, got, plain = out0.clone(), out0.clone(), out0.clone()
+        flag_want = graph_step_plain(lab, data, sym, want)
+        active = active_cells(data)
+        assert int(graph_step(lab, active, sym, got)) == int(flag_want)
+        assert int(graph_step_active_plain(lab, active, sym, plain)) == int(flag_want)
+        assert_same(want, got, f"{name} T={T}")
+        assert_same(want, plain, f"{name} T={T}")
+
+
+@pytest.mark.parametrize("name", list(TABLES))
+def test_jump_on_the_list_matches_pointer_jump(name):
+    """On fields whose inactive cells hold BIG, the jump over the list is
+    the whole-field ``pointer_jump``; it writes only the listed cells."""
+    C = TABLES[name].shape[1]
+    g = torch.Generator().manual_seed(9)
+    data = torch.rand((4, C), generator=g) < 0.6
+    b = torch.randint(0, C, (4, C), generator=g, dtype=torch.int32)
+    b.masked_fill_(~data | (torch.rand((4, C), generator=g) < 0.05), BIG)  # a few active cells BIG too
+    active = active_cells(data)
+    got = graph_jump(b, active, torch.full_like(b, BIG))
+    assert_same(pointer_jump_plain(b, C), got, f"{name} jump")
+    stale = torch.randint(0, C, (4, C), generator=g, dtype=torch.int32)
+    kept = stale.clone()
+    graph_jump(b, active, out=stale)
+    assert_same(kept[~data], stale[~data], "unlisted cells")
+    assert_same(got[data], stale[data], "listed cells")
+
+
+def test_active_cells_are_the_ascending_flat_indices(monkeypatch):
+    data = np.random.default_rng(2).random((7, 333)) < 0.3
+    want = np.flatnonzero(data)
+    got = active_cells(torch.from_numpy(data))
+    assert got.dtype == torch.int64
+    assert_same(want, got, "active cells")
+    monkeypatch.setattr(port_graph_step, "_NONZERO_CELLS", 100)  # in chunks across slices
+    assert_same(want, active_cells(torch.from_numpy(data)), "active cells in chunks")
+    assert active_cells(torch.zeros((0, 5), dtype=torch.bool)).numel() == 0
+
+
+@pytest.mark.parametrize("C", [1, 3, 1048352, 2**31 - 2])
+def test_split_flat_past_2_31(C):
+    """The kernels' split of an int64 flat index into (slice base, cell),
+    by a float64 reciprocal and one correction, is exact from 0 up to
+    2**52: at slice edges past 2**31 and at random indices."""
+    t = np.array([0, 1, 2048, 2049, 2100, (2**31) // C, (2**31) // C + 1, (2**52 - 1) // C], np.int64)
+    flat = np.concatenate([t * C, t * C + C - 1, [2**31 - 1, 2**31, 2**32 + 7, 2**52 - 1]])
+    rng = np.random.default_rng(C % 1000)
+    flat = np.concatenate([flat, rng.integers(0, 2**52, 1000), rng.integers(2**31 - 2**20, 2**31 + 2**20, 1000)])
+    flat = flat[flat < 2**52]
+    base, c = split_flat(torch.from_numpy(flat), C)
+    q, r = np.divmod(flat, C)
+    np.testing.assert_array_equal(base.numpy(), q * C)
+    np.testing.assert_array_equal(c.numpy(), r)
+
+
+def test_renumbered_mesh_matches_reference():
+    """The triangle-pair mesh with its cells renumbered by a seeded
+    permutation, table and data alike: no longer a lattice's local
+    numbering. Labels equal ``marex_tpu``'s and scipy's on the renumbered
+    mesh, and its components are those of the mesh as numbered."""
+    sym = TABLES["tri_mesh"]
+    K, C = sym.shape
+    rng = np.random.default_rng(17)
+    perm = rng.permutation(C)  # new cell j is old cell perm[j]
+    inv = np.argsort(perm)
+    sym_p = np.where(sym[:, perm] >= 0, inv[np.maximum(sym[:, perm], 0)], -1).astype(np.int32)
+    data = rng.random((5, C)) < 0.55
+    data_p = data[:, perm]
+    r_lab, r_counts = ref_label.label_slices_unstructured(jnp.asarray(data_p), jnp.asarray(sym_p))
+    p_lab, p_counts, _ = port_label.label_slices_unstructured(torch.from_numpy(data_p), torch.from_numpy(sym_p))
+    assert_same(r_lab, p_lab, "renumbered labels vs marex_tpu")
+    assert_same(r_counts, p_counts, "renumbered counts vs marex_tpu")
+    assert_same(oracle_labels(data_p, sym_p), p_lab, "renumbered labels vs scipy")
+    lab, counts, _ = port_label.label_slices_unstructured(torch.from_numpy(data), torch.from_numpy(sym))
+    assert_same(counts, p_counts, "counts as numbered")
+    t = np.repeat(np.arange(len(data)), C)
+    pairs = np.stack([t, lab.numpy()[:, perm].ravel(), p_lab.numpy().ravel()], 1)  # a bijection in each slice
+    assert len(np.unique(pairs, axis=0)) == len(np.unique(pairs[:, :2], axis=0)) == len(np.unique(pairs[:, ::2], axis=0))
+
+
+@pytest.mark.parametrize(
+    "mask, error",
+    [
+        (torch.ones((2, 10), dtype=torch.int32), TypeError),
+        (torch.ones((10, 2), dtype=torch.bool).t(), ValueError),
+    ],
+    ids=["not_bool", "not_contiguous"],
+)
+def test_active_cells_refuses_what_the_kernel_does_not_take(mask, error):
+    with pytest.raises(error):
+        active_cells(mask)
