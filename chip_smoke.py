@@ -107,7 +107,22 @@ Phases, each of which raises (and so exits nonzero) on failure:
    hand, at iteration 6 its fused step and jump held against their plain
    versions (bit-identical) on the slices that hold cells past 2**31, where
    slice bases and hook targets need 64-bit offsets, then timed beside their
-   byte bounds and ``max_pool2d`` on the same labels.
+   byte bounds and ``max_pool2d`` on the same labels;
+7. plotX on the paths' outputs, each held against its host copy bit for bit:
+   config 4's ``ID_field`` and ``dat_anomaly`` (1095 x 720 x 1440) and config
+   5's ``ID_field`` (730 x 1,048,352), each copied back to the card from the
+   host copy phase 5 kept, and config 8's ``ID_field`` read lazily from its
+   output store. The NaN-ignoring max (on the card also of an ID field's
+   ``where(> 0)`` view) against ``np.nanmax``, the robust limits of every tenth slice
+   against ``np.percentile`` with ``issym`` on and off, frames 0, T/2 and
+   T-1 as drawn (an ID field masked), and on config 5 the wall of their
+   1-degree kd-tree regrid; each step's wall and the bytes it brought to the
+   host (of config 8, the chunk bytes it read from disk) beside what the
+   reference's pattern pulls, and the phase's peak device memory, under 40 GB. With matplotlib,
+   ``single_plot(plot_IDs=True)``, a 3-panel ``multi_plot`` and a 5-frame
+   ``animate`` drawn from the card's payloads must equal those drawn from the
+   host copies; without it, ``plotX()`` must raise ``DependencyError`` naming
+   matplotlib.
 
 The line before the last is a JSON object with each kernel's launches on the
 path that runs it (config 4; config 5 for the mesh kernels) and on every path
@@ -120,6 +135,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import functools
 import json
@@ -922,7 +938,7 @@ def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str):
     walls, counts and memory, and config 2's detect split; returns ({path:
     launch counts}, host copies of the SST (pinned), config 2's detect
     outputs and config 4's extremes, mask and outputs, for the streamed
-    paths)."""
+    paths; config 4's ``ID_field`` and ``dat_anomaly`` for phase 7)."""
     from marex_tpu_torch.core.timeaxis import decompose_time
 
     t0 = time.perf_counter()
@@ -962,6 +978,10 @@ def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str):
                 wall=t_trk, events={k: events[k].values for k in events.data_vars}, attrs=dict(events.attrs),
                 merges={k: merges[k].values for k in merges.data_vars},
             )
+            # phase 7's payloads, kept on the host: held on the card through the six-year
+            # path they would lift its peak over the 40 GB limit
+            refs["plot"] = {"config 4": dict(ID_field=refs["config 4"]["events"]["ID_field"],
+                                             dat_anomaly=ds["dat_anomaly"].values, coords=coords)}
         del events, merges, tr, thr, mask
         if detect is DETECT_CONFIG2:
             config2_detect_split(mx, sst, coords, ds, decompose_time(ds.coords["time"].values))
@@ -1542,12 +1562,13 @@ def report_path(path: str, n_in: int, events, tr, t_det: float, t_trk: float, de
     print(f"  stage_peak_bytes (running max): {json.dumps(tr.stage_peak_bytes)}")
 
 
-def mesh_and_regional_paths(mx, seed: int, kernels: dict) -> dict:
+def mesh_and_regional_paths(mx, seed: int, kernels: dict, plot_inputs: dict) -> dict:
     """Phase 5, this slice's paths at full size, generated on the card: config
     5 (2 yr x 1,048,352 cells, merge tracking on the mesh) and config 3
     (3 yr x 360 x 720 over lat 30..70, lon -30..40, the regional tracker
     without merging), each with the kernels' launch counts set to 0 just
-    before it and read just after; returns {path: launch counts}."""
+    before it and read just after; returns {path: launch counts}. Config
+    5's ``ID_field`` and its cells' lon/lat go to ``plot_inputs`` (phase 7)."""
     launches = {}
 
     def start():
@@ -1569,6 +1590,7 @@ def mesh_and_regional_paths(mx, seed: int, kernels: dict) -> dict:
     if int(events.attrs["total_merges"]) <= 0:
         raise AssertionError(f"config 5: no merge on the mesh: {events.attrs}")
     report_path(f"config 5 {tuple(sst.shape)}", sst.numel(), events, tr, t_det, t_trk, detect_peak, launches["config 5"])
+    plot_inputs["config 5"] = dict(ID_field=events["ID_field"].values, lon=coords["lon"][1], lat=coords["lat"][1])
     del sst, ds, events, merges, tr
 
     ny, nx = 360, 720
@@ -1601,7 +1623,7 @@ def equal_blocks(lazy, want: np.ndarray) -> bool:
         return all(pool.map(same, range(0, lazy.shape[0], step)))
 
 
-def streamed_paths(mx, refs: dict, kernels: dict) -> dict:
+def streamed_paths(mx, refs: dict, kernels: dict, plot_inputs: dict, keep_dir: str) -> dict:
     """Phase 5, the out-of-core path at full size, into a temporary directory:
     config 7 (config 2's detect through ``preprocess_data_streamed`` from the
     SST in pinned host memory, ``memory_budget_mb=2048``, raw chunks) against
@@ -1610,7 +1632,8 @@ def streamed_paths(mx, refs: dict, kernels: dict) -> dict:
     ``memory_budget_mb=2048``) against config 4's in-memory run like the
     phase-4 slices, its peak within twice the budget. Each with the kernels'
     launch counts set to 0 just before it and read just after; returns
-    {path: launch counts}."""
+    {path: launch counts}. Config 8's output store is moved to ``keep_dir``
+    and named in ``plot_inputs`` (phase 7)."""
     from marex_tpu_torch.io import zarr_lite
 
     launches = {}
@@ -1705,6 +1728,8 @@ def streamed_paths(mx, refs: dict, kernels: dict) -> dict:
         print(f"  stage_peak_bytes (running max): {json.dumps(tr.stage_peak_bytes)}")
         print(f"  dispatch_counts: {json.dumps(tr.dispatch_counts)}; ccl iterations {json.dumps(tr.ccl_iterations)}; "
               f"launch counts {json.dumps(launches['config 8'])}")
+        del events, merges
+        plot_inputs["config 8"] = shutil.move(os.path.join(work, "events.zarr"), os.path.join(keep_dir, "events.zarr"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return launches
@@ -1918,6 +1943,222 @@ def mesh_labels(mx, seed: int):
     return result, {k: max(err[k], err_p[k], err_long[k]) for k in err}
 
 
+# ---- phase 7: plotX's preparation on the paths' outputs ----------------------
+
+PLOT_PERCENTILES = [4, 96]  # PlotConfig's default cperc
+
+
+def limits_host(sample: np.ndarray) -> dict:
+    """The reference's robust colour limits (``clim_robust`` of
+    ``marex_tpu/plotX/base.py``: ``np.percentile`` of the finite values) of a
+    host sample, with ``issym`` on (True) and off (False): phase 7's oracle."""
+    vals = sample[np.isfinite(sample)]
+    if vals.size == 0:
+        return {True: (0.0, 1.0), False: (0.0, 1.0)}
+    lo, hi = np.percentile(vals, PLOT_PERCENTILES)
+    m = max(abs(lo), abs(hi))
+    return {True: (-m, m), False: (float(lo), float(hi))}
+
+
+def same_scalar(got, want) -> bool:
+    """Equal to the bit, with numpy's type."""
+    return type(got) is type(want) and np.asarray(got).tobytes() == np.asarray(want).tobytes()
+
+
+def prep_against_host(mx, what: str, payload, host: np.ndarray, dims: tuple, ids: bool, device: str,
+                      lonlat=None) -> dict:
+    """Phase 7 on one payload (a tensor on ``device``, or a lazy zarr array)
+    against its host copy: the NaN-ignoring max against ``np.nanmax`` (for an
+    ID field on the device, of its ``where(> 0)`` view too); the robust limits of every tenth
+    slice against ``np.percentile`` with ``issym`` on and off; frames 0, T/2
+    and T-1 as drawn (masked for an ID field). Bit for bit; prints each
+    step's wall and the bytes it brought to the host beside what the
+    reference's pattern pulls (a lazy payload's are read from disk), and on a
+    mesh the wall of the 1-degree kd-tree regrid of each frame (its equality
+    with the reference's regrid is ``tests/test_torch_plotx.py``'s). Returns
+    {step: (wall, bytes)}."""
+    from marex_tpu_torch.io import zarr_lite
+    from marex_tpu_torch.plotX import prep
+    from marex_tpu_torch.plotX.unstructured import kdtree_regrid
+
+    out = {}
+    lazy = isinstance(payload, zarr_lite.LazyZarrArray)
+    decompressed = []  # a lazy payload's chunk bytes, counted where each chunk is decompressed
+    decompress = zarr_lite._decompress
+
+    def counted(raw, comp):
+        chunk = decompress(raw, comp)
+        decompressed.append(len(chunk))
+        return chunk
+
+    def step(name: str, fn, reference: str):
+        prep.pull.bytes = 0
+        decompressed.clear()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if lazy:
+            zarr_lite._decompress = counted
+        try:
+            got = fn()
+        finally:
+            zarr_lite._decompress = decompress
+        if device == "cuda":
+            torch.cuda.synchronize()
+        moved = sum(decompressed) if lazy else prep.pull.bytes
+        out[name] = (time.perf_counter() - t0, moved)
+        where = "read from disk (chunk bytes decompressed)" if lazy else "to the host"
+        print(f"  {what} {name}: {out[name][0]:.4f} s, {moved} bytes {where} (the reference's pattern: {reference})")
+        return got
+
+    T = host.shape[0]
+    slice_bytes = host[0].nbytes
+    got = step("nanmax", lambda: prep.nanmax(payload), f"{host.nbytes} bytes, the whole field")
+    want = np.nanmax(host)
+    if not same_scalar(got, want):
+        raise AssertionError(f"{what}: nanmax {got!r} != np.nanmax {want!r}")
+    if ids and isinstance(payload, torch.Tensor):
+        # the view's max is the largest ID above 0, as float64 (IDs are >= 0)
+        got = step("nanmax of where(> 0)", lambda: prep.nanmax(prep.PositiveOnly(payload)),
+                   f"{host.nbytes} bytes, and a float64 copy of {8 * host.size} bytes")
+        if not (want > 0 and same_scalar(got, np.float64(want))):
+            raise AssertionError(f"{what}: nanmax of the view {got!r}, the field's max {want!r}")
+    sample = host[::10]
+    want = limits_host(sample)
+    for issym in (True, False):
+        got = step(f"robust limits issym={issym}",
+                   lambda: prep.robust_limits(payload, issym, PLOT_PERCENTILES, axis=0),
+                   f"{sample.nbytes} bytes, every tenth slice")
+        if len(got) != 2 or not all(same_scalar(g, w) for g, w in zip(got, want[issym])):
+            raise AssertionError(f"{what}: robust limits issym={issym} {got!r} != np.percentile's {want[issym]!r}")
+    field = mx.Field(prep.PositiveOnly(payload) if ids else payload, dims, name=what)
+    for t in (0, T // 2, T - 1):
+        # the reference masks an ID field whole, once: it pulls the field and makes a float64 copy
+        frame = step(f"frame {t}", lambda: prep.host_frame(field, "time", t).data,
+                     f"{slice_bytes} bytes" + (", after the whole field masked once" if ids else ""))
+        want = np.where(host[t] > 0, host[t], np.nan) if ids else host[t]
+        if not (isinstance(frame, np.ndarray) and same_bits(frame, want)):
+            raise AssertionError(f"{what}: frame {t} differs from the host copy's")
+        if lonlat is not None:
+            t0 = time.perf_counter()
+            raster = kdtree_regrid(*lonlat, np.asarray(frame, dtype=float), 1.0)[2]
+            print(f"  {what} frame {t} regridded to 1 degree {raster.shape}: {time.perf_counter() - t0:.4f} s on "
+                  f"the host" + (" (the tree built and cached)" if t == 0 else ""))
+    return out
+
+
+def figure_arrays(fig) -> list:
+    """What a figure shows: each axes' title, colourbar extend, and each
+    artist's array and mask, colour limits and norm boundaries."""
+    out = []
+    for ax in fig.axes:
+        cb = getattr(ax, "_colorbar", None)
+        out.append((ax.get_title(), None if cb is None else cb.extend, [
+            (type(c).__name__, np.ma.getdata(c.get_array()), np.ma.getmaskarray(c.get_array()), c.get_clim(),
+             getattr(c.norm, "boundaries", None)) for c in ax.collections if c.get_array() is not None]))
+    return out
+
+
+def same_figures(a, b) -> bool:
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(same_figures(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.shape == b.shape and same_bits(a, b)
+    return a == b or (a != a and b != b)
+
+
+def render_against_host(mx, ids_card, ids_host, anom_card, anom_host, workdir: str) -> None:
+    """Phase 7 with matplotlib: ``single_plot(plot_IDs=True)`` of the ID field,
+    a 3-panel ``multi_plot`` of the anomalies and a 5-frame ``animate`` of the
+    ID field, each drawn from the card's payload and from the host copy; the
+    artists' arrays, limits, norms, titles and colourbars, and the animation's
+    file, must be the same."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    t0 = time.perf_counter()
+    figs = [f.plotX().single_plot(mx.PlotConfig(plot_IDs=True, title="events"))[0] for f in (ids_card, ids_host)]
+    if not same_figures(*[figure_arrays(f) for f in figs]):
+        raise AssertionError("single_plot(plot_IDs=True): the card's figure differs from the host copy's")
+    plt.close("all")
+    figs = [f.isel(time=slice(0, 3)).plotX().multi_plot(mx.PlotConfig(issym=True), col="time", col_wrap=3)[0]
+            for f in (anom_card, anom_host)]
+    if not same_figures(*[figure_arrays(f) for f in figs]):
+        raise AssertionError("multi_plot: the card's figure differs from the host copy's")
+    plt.close("all")
+    files = [f.isel(time=slice(0, 5)).plotX().animate(mx.PlotConfig(plot_IDs=True), plot_dir=os.path.join(workdir, k),
+                                                        file_name="events")
+             for k, f in (("card", ids_card), ("host", ids_host))]
+    if files[0].endswith(".gif"):
+        from PIL import Image, ImageSequence
+
+        frames = []
+        for path in files:
+            with Image.open(path) as img:
+                frames.append([np.asarray(f.convert("RGB")) for f in ImageSequence.Iterator(img)])
+        same = len(frames[0]) == len(frames[1]) == 5 and all(np.array_equal(a, b) for a, b in zip(*frames))
+    else:
+        with open(files[0], "rb") as a, open(files[1], "rb") as b:
+            same = a.read() == b.read()
+    if not same:
+        raise AssertionError(f"animate: {files[0]} differs from {files[1]}")
+    print(f"  plotX drew single_plot(plot_IDs=True), a 3-panel multi_plot and a 5-frame animate from the card's "
+          f"payloads == from the host copies ({time.perf_counter() - t0:.1f} s)")
+
+
+def plot_phase(mx, inputs: dict, device: str, workdir: str) -> dict:
+    """Phase 7, plotX on the paths' outputs: config 4's ``ID_field`` and
+    ``dat_anomaly``, config 5's ``ID_field`` with its mesh's lon/lat and
+    config 8's lazy ``ID_field``, each prepared for plotting (on the card,
+    or a chunk at a time from the store) and held against its host copy
+    (:func:`prep_against_host`); then either drawn both ways
+    (:func:`render_against_host`) or, without matplotlib, ``plotX()`` must
+    raise the port's ``DependencyError`` naming it. ``inputs`` holds the host
+    copies; each is copied to ``device`` in turn. Returns {payload: steps}."""
+    from marex_tpu_torch.io import zarr_lite
+
+    steps = {}
+    c4 = inputs["config 4"]
+    grid = ("time", "lat", "lon")
+    for key, ids in (("ID_field", True), ("dat_anomaly", False)):
+        t0 = time.perf_counter()
+        card = torch.from_numpy(c4[key]).to(device)
+        print(f"  config 4 {key} {tuple(card.shape)} {card.dtype} on {device} ({time.perf_counter() - t0:.2f} s "
+              f"to copy back from the host)")
+        steps[f"config 4 {key}"] = prep_against_host(mx, f"config 4 {key}", card, c4[key], grid, ids, device)
+        del card
+    c5 = inputs["config 5"]
+    card = torch.from_numpy(c5["ID_field"]).to(device)
+    steps["config 5 ID_field"] = prep_against_host(mx, "config 5 ID_field", card, c5["ID_field"], ("time", "ncells"),
+                                                   True, device, lonlat=(c5["lon"], c5["lat"]))
+    del card
+    lazy = zarr_lite.open_zarr(inputs["config 8"], lazy=True)["ID_field"]
+    print(f"  config 8 ID_field: lazy, {lazy.data.shape} in chunks of {lazy.data.chunks}")
+    steps["config 8 ID_field"] = prep_against_host(mx, "config 8 ID_field", lazy.data, c4["ID_field"], grid, True,
+                                                   "cpu")
+
+    coords = c4["coords"]
+    ids_card = mx.Field(torch.from_numpy(c4["ID_field"]).to(device), grid, coords, name="ID_field")
+    if mx.has_dependency("matplotlib"):
+        anom_card = mx.Field(torch.from_numpy(c4["dat_anomaly"]).to(device), grid, coords, name="dat_anomaly")
+        render_against_host(mx, ids_card, mx.Field(c4["ID_field"], grid, coords, name="ID_field"), anom_card,
+                            mx.Field(c4["dat_anomaly"], grid, coords, name="dat_anomaly"), workdir)
+        del anom_card
+    else:
+        try:
+            ids_card.plotX()
+        except mx.DependencyError as e:
+            if "matplotlib" not in str(e):
+                raise AssertionError(f"plotX() without matplotlib raised a DependencyError not naming it: {e}")
+            print("  matplotlib is absent: events.ID_field.plotX() raised DependencyError naming matplotlib")
+        else:
+            raise AssertionError("plotX() made a plotter without matplotlib")
+    del ids_card
+    return steps
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2096,8 +2337,11 @@ def main() -> int:
                "graph_step": graph_step, "graph_jump": graph_jump}
     mesh_kernels = ("active_cells", "graph_step", "graph_jump")
     launches, refs = main_paths(mx, 720, 1440, args.seed, kernels, "cuda")
-    launches.update(mesh_and_regional_paths(mx, args.seed, kernels))
-    launches.update(streamed_paths(mx, refs, kernels))
+    plot_inputs = refs.pop("plot")
+    plot_dir = tempfile.mkdtemp(prefix="marex_smoke_plot_")  # config 8's output store, for phase 7
+    atexit.register(shutil.rmtree, plot_dir, True)
+    launches.update(mesh_and_regional_paths(mx, args.seed, kernels, plot_inputs))
+    launches.update(streamed_paths(mx, refs, kernels, plot_inputs, plot_dir))
     del refs
     torch.cuda.empty_cache()
     launches[f"config 1 at {LONG_DAYS} days"], long_tr = long_nomerge_path(mx, args.seed, kernels)
@@ -2128,6 +2372,18 @@ def main() -> int:
     for k, diff in long_path_labels(long_tr).items():
         err[k] = max(err[k], diff)
     del long_tr
+    torch.cuda.empty_cache()
+
+    # ---- 7. plotX on the paths' outputs ----------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plot_phase(mx, plot_inputs, "cuda", plot_dir)
+    del plot_inputs
+    peak = torch.cuda.max_memory_allocated()
+    print(f"plotX on configs 4, 5 and 8: {time.perf_counter() - t0:.1f} s, bit-identical to the host copies; peak "
+          f"{peak} bytes ({peak / 2**30:.2f} GiB) ({smi})")
+    if peak > 40e9:
+        raise AssertionError(f"phase 7's peak {peak} bytes is over the 40 GB limit")
 
     # each kernel's launches on the path that runs it: the merge path, and for the mesh kernels config 5
     source = {"ccl_step": "min_stencil.cu", "pointer_jump": "min_stencil.cu", "active_cells": "graph_step.cu",

@@ -28,7 +28,10 @@ the tracker's mid-level API (``identify_objects``,
 ``calculate_object_properties``, ``check_overlap_slice``,
 ``find_overlapping_objects``), the ``Field`` operators and reductions (in
 torch, on the payload's device) and the runtime helpers (``helper``) are
-ported; ``plotX`` is not yet. Tensors stay on
+ported, and so is the third stage, visualisation (``plotX``,
+``PlotConfig``, ``specify_grid``; matplotlib needed to draw), which reduces
+a field on its own device and brings one slice a frame to the host; the
+sharded multi-device package ``parallel`` is not yet. Tensors stay on
 the device they were given; numpy inputs move to ``device`` (default
 ``"cuda"``); lazy zarr payloads stay on disk until read. The
 connected-component labelling runs on hand-written CUDA kernels
@@ -102,6 +105,9 @@ __all__ = [
     # Tracking
     "tracker",
     "regional_tracker",
+    # Visualisation
+    "specify_grid",
+    "PlotConfig",
     # Exceptions
     "MarExError",
     "DataValidationError",
@@ -138,9 +144,8 @@ __all__ = [
 
 __version__ = "0.1.0"
 
-# the plotting names come with the port of plotX, the sharded package with multi-GPU
-_NOT_PORTED = {name: "ROADMAP queue 1, item 12 (plotX)" for name in ("plotX", "PlotConfig", "specify_grid")}
-_NOT_PORTED["parallel"] = "ROADMAP queue 1, item 11 (multi-GPU)"
+# the sharded package comes with multi-GPU
+_NOT_PORTED = {"parallel": "ROADMAP queue 1, item 11 (multi-GPU)"}
 
 
 def __getattr__(name):
@@ -152,6 +157,9 @@ def __getattr__(name):
                 "start_distributed_cluster"):
         mod = importlib.import_module(".helper", __name__)
         return mod if name == "helper" else getattr(mod, name)
+    if name in ("specify_grid", "PlotConfig", "plotX"):
+        mod = importlib.import_module(".plotX", __name__)
+        return mod if name == "plotX" else getattr(mod, name)
     if name == "io":
         return importlib.import_module(".io", __name__)
     if name in _NOT_PORTED:

@@ -76,6 +76,15 @@ def has_dependency(name: str) -> bool:
     return ok
 
 
+def _install_hint(names: List[str]) -> str:
+    """The reference's ``pip install`` hint; a program's hint where one of
+    ``names`` is a program."""
+    hints = [OPTIONAL_DEPENDENCIES.get(n, (n, ""))[0] for n in names]
+    if any(n in _BINARIES for n in names):
+        return f"Install: {', '.join(hints)}"
+    return f"Install with: pip install {' '.join(hints)}"
+
+
 def require_dependencies(names: List[str], feature: str = "this feature") -> None:
     """
     Raise :class:`DependencyError` when any of ``names`` is missing, with an
@@ -83,11 +92,10 @@ def require_dependencies(names: List[str], feature: str = "this feature") -> Non
     """
     missing = [n for n in names if not has_dependency(n)]
     if missing:
-        hints = [OPTIONAL_DEPENDENCIES.get(n, (n, ""))[0] for n in missing]
         raise DependencyError(
             f"Missing dependencies for {feature}: {', '.join(missing)}",
             details=f"{feature} requires additional packages that are not installed",
-            suggestions=[f"Install: {', '.join(hints)}"],
+            suggestions=[_install_hint(missing)],
             context={"missing": missing, "feature": feature},
         )
 
@@ -102,8 +110,7 @@ def warn_missing_dependency(name: str, feature: str = "Some functionality") -> N
     _warned.add(name)
     from .logging_config import get_logger
 
-    hint = OPTIONAL_DEPENDENCIES.get(name, (name, ""))[0]
-    get_logger(__name__).warning(f"{feature} requires '{name}' which is not installed. Install: {hint}")
+    get_logger(__name__).warning(f"{feature} requires '{name}' which is not installed. {_install_hint([name])}")
 
 
 def get_dependency_status() -> Dict[str, bool]:

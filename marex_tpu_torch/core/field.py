@@ -750,6 +750,15 @@ class Field:
         """Move the payload to the card (to ``device``)."""
         return self.to(device)
 
+    @property
+    def plotX(self):
+        """The plotting accessor: ``field.plotX()`` is a plotter, and
+        ``field.plotX.single_plot(config)`` draws (:mod:`marex_tpu_torch.plotX`,
+        imported here at first use; drawing needs matplotlib)."""
+        from ..plotX import PlotXAccessor
+
+        return PlotXAccessor(self)
+
 
 def on_device(data: ArrayLike, device: Union[str, torch.device]) -> torch.Tensor:
     """``data`` as a tensor: a tensor keeps its own device, anything else

@@ -87,6 +87,7 @@ def _write_array(
         chunks = _choose_chunks(arr.shape, arr.dtype.itemsize)
     else:
         chunks = tuple(min(int(c), s) for c, s in zip(chunks, arr.shape))
+    chunks = tuple(max(1, c) for c in chunks)  # zarr's chunks are >= 1; an empty dim has no chunk files
     zarray = {
         "zarr_format": 2,
         "shape": list(arr.shape),

@@ -526,3 +526,42 @@ def test_check_device_health_on_the_card():
     report = port.check_device_health()
     assert report["ok"] and len(report["devices"]) == torch.cuda.device_count() >= 1
     assert all(d["ok"] for d in report["devices"])
+
+
+@pytest.mark.cuda
+def test_plot_preparation_on_cuda_matches_cpu():
+    """plotX's preparation on CUDA payloads: the NaN-ignoring maximum (of the
+    field and of its ``where(> 0)`` view), the robust limits of every tenth
+    slice and the frames' host arrays, bit for bit against the same on the
+    CPU copies and against numpy; only scalars and one slice come back."""
+    _need_cuda()
+    from marex_tpu_torch.plotX import prep
+
+    rng = np.random.default_rng(4)
+    shape = (45, 30, 50)
+    anom = rng.standard_normal(shape).astype(np.float32)
+    anom[:, 3:7, 5:9] = np.nan
+    ids = np.where(rng.random(shape) < 0.3, rng.integers(1, 100, shape), 0).astype(np.int32)
+    for host in (anom, ids):
+        dev = torch.from_numpy(host).cuda()
+        cpu = torch.from_numpy(host.copy())
+        for view in (lambda x: x, prep.PositiveOnly):
+            got, want = prep.nanmax(view(dev)), prep.nanmax(view(cpu))
+            assert type(got) is type(want) and got.tobytes() == want.tobytes()
+        assert prep.nanmax(dev) == np.nanmax(host)
+        sample = host[::10]
+        for issym in (True, False):
+            prep.pull.bytes = 0
+            got = prep.robust_limits(dev, issym, [4, 96], axis=0)
+            assert prep.pull.bytes <= 16
+            assert got == prep.robust_limits(cpu, issym, [4, 96], axis=0)
+            lo, hi = np.percentile(sample[np.isfinite(sample)], [4, 96])
+            m = max(abs(lo), abs(hi))
+            assert np.asarray(got).tobytes() == np.asarray((-m, m) if issym else (float(lo), float(hi))).tobytes()
+        field = port.Field(dev, ("time", "lat", "lon"), name="f")
+        for t in (0, 22, 44):
+            prep.pull.bytes = 0
+            frame = prep.host_frame(field._replace(data=prep.PositiveOnly(dev)), "time", t)
+            assert prep.pull.bytes == host[t].nbytes and isinstance(frame.data, np.ndarray)
+            assert np.array_equal(frame.data, np.where(host[t] > 0, host[t], np.nan), equal_nan=True)
+            assert np.array_equal(prep.host_frame(field, "time", t).data, host[t], equal_nan=True)

@@ -6,7 +6,8 @@ coordinates; region writes, their alignment error and the rejection of fancy
 indexing; stores written by ``marex_tpu.io.zarr_lite`` read back bit for bit
 by the port's and the reverse (the files themselves are identical); the
 native LZ4 decoder against the Python one on hand-made blocks; ``concat``
-and a lazy payload that stays lazy.
+and a lazy payload that stays lazy; zero-size arrays (the tables of a run
+with no event).
 """
 
 import os
@@ -80,6 +81,19 @@ def test_to_zarr_round_trip_with_datetimes_and_tensors(tmp_path):
     assert back["sst"].data.chunks == (16, 6, 8)
     np.testing.assert_array_equal(back.coords["time"].values.astype("datetime64[ns]"), times.astype("datetime64[ns]"))
     assert np.array_equal(np.asarray(back["sst"].values), data.numpy(), equal_nan=True)
+
+
+@pytest.mark.parametrize("chunks", [None, {"ID": 4}], ids=["default chunks", "chunked"])
+def test_zero_size_arrays_round_trip(tmp_path, chunks):
+    """A run with no event has (time, 0) tables: written with no chunk file
+    along the empty dim and read back, eagerly and lazily."""
+    empty = port.Field(np.zeros((5, 0), np.float32), ("time", "ID"), name="area")
+    q = str(tmp_path / "e.zarr")
+    zl.to_zarr(port.FieldSet({"area": empty, "ids": port.Field(np.arange(3), ("x",), name="ids")}), q, chunks=chunks)
+    for lazy in (False, True):
+        back = zl.open_zarr(q, lazy=lazy)
+        assert back["area"].shape == (5, 0) and np.asarray(back["area"].values).dtype == np.float32
+        np.testing.assert_array_equal(np.asarray(back["ids"].values), np.arange(3))
 
 
 def test_region_write_alignment_and_fancy_indexing(tmp_path):
