@@ -122,11 +122,22 @@ Phases, each of which raises (and so exits nonzero) on failure:
    ``single_plot(plot_IDs=True)``, a 3-panel ``multi_plot`` and a 5-frame
    ``animate`` drawn from the card's payloads must equal those drawn from the
    host copies; without it, ``plotX()`` must raise ``DependencyError`` naming
-   matplotlib.
+   matplotlib;
+8. the multi-device layer: a child process started with ``torchrun``'s
+   variables for a world of one rank (``RANK=0 WORLD_SIZE=1 LOCAL_RANK=0``, a
+   free port) joins it through ``start_distributed_cluster()`` (NCCL) and
+   runs, each with ``mesh=True`` through the entry points: config 2's detect
+   at 3 yr x 90 x 360 and config 5 at 2 yr x 32768 cells (each also without
+   a mesh, in the child), then config 4 (the main path) and config 1 at 1095
+   x 720 x 1440. Every output (digests of each array, computed on the card,
+   and the attrs) must equal the run without a mesh: phase 5's for configs 4
+   and 1. The split outputs must be DTensors, and each path must have
+   launched the kernels it labels on and no other; each run's walls, peak
+   and launches are printed.
 
 The line before the last is a JSON object with each kernel's launches on the
 path that runs it (config 4; config 5 for the mesh kernels) and on every path
-(``launches_by_path``), its largest
+(``launches_by_path``, phase 8's mesh runs included), its largest
 difference from the plain version, and its time, its plain version's, its
 bound and the nearest PyTorch call's on that path's own labels (phase 6);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -947,7 +958,7 @@ def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str):
         torch.cuda.synchronize()
     print(f"data: {tuple(sst.shape)} generated on the card in {time.perf_counter() - t0:.1f} s")
     launches = {}
-    refs = {"coords": coords}
+    refs = {"coords": coords, "digests": {}}
     paths = (("config 1", DETECT_FIXED, False), ("config 2", DETECT_CONFIG2, False),
              ("merge path (config 4)", DETECT_FIXED, True))
     for path, detect, merge in paths:
@@ -968,6 +979,8 @@ def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str):
             check_event_ids(events, (T, ny, nx))
         report_path(f"{path} {sst.shape[0]} x {ny} x {nx} (tracked {T} days)", sst.numel(), events, tr, t_det, t_trk,
                     detect_peak, launches[path])
+        if detect is DETECT_FIXED:  # phase 8's mesh runs of configs 1 and 4 must give these bits
+            refs["digests"][path] = digests(ds, events, merges)
         if path == "config 1":
             two_level_full_size(mx, ds, events, ny)
         if detect is DETECT_CONFIG2:
@@ -2159,10 +2172,193 @@ def plot_phase(mx, inputs: dict, device: str, workdir: str) -> dict:
     return steps
 
 
+# ---- phase 8: the multi-device layer in a world of one NCCL rank ---------------
+
+# the paths phase 8 runs on a mesh: the two full-size ones whose outputs phase
+# 5 digested, by phase 5's names
+MESH_FULL_PATHS = (("merge path (config 4)", True), ("config 1", False))
+
+
+def digest(x) -> str:
+    """A content digest of an array or tensor (a DTensor gathered), computed on
+    its own device: its dtype, its shape and two position-weighted int64 sums
+    of its elements' bits (wrapping), over chunks of 2**26 elements. Equal
+    for the same bits whatever the device or the kind of array."""
+    from marex_tpu_torch.core.field import gathered
+
+    x = gathered(x)
+    if not isinstance(x, torch.Tensor):
+        a = np.ascontiguousarray(x)
+        x = torch.from_numpy(a.view(np.int64) if a.dtype.kind in "mM" else a)
+    flat = x.reshape(-1)
+    if flat.dtype in (torch.float32, torch.float64):
+        flat = flat.view(torch.int32 if flat.dtype == torch.float32 else torch.int64)
+    sums = [0, 0]
+    for a in range(0, flat.numel(), 1 << 26):
+        v = flat[a : a + (1 << 26)].to(torch.int64)
+        idx = torch.arange(a, a + v.numel(), dtype=torch.int64, device=v.device)
+        for i, mult in enumerate((0x9E3779B97F4A7C1, 0x632BE59BD9B4E01)):
+            sums[i] = (sums[i] + int(((idx * mult + 1) * (v + 0x5851F42D)).sum())) & (2**64 - 1)
+    return f"{str(x.dtype).removeprefix('torch.')}{tuple(x.shape)}:{sums[0]:016x}{sums[1]:016x}"
+
+
+def digests(ds, events, merges) -> dict:
+    """Digests of a path's detect outputs, events and merge records, and its
+    attrs (JSON)."""
+    out = {f"detect/{k}": digest(ds[k].data) for k in ("dat_anomaly", "extreme_events", "thresholds", "mask")}
+    out.update({f"events/{k}": digest(events[k].data) for k in events.data_vars})
+    if merges is not None:
+        out.update({f"merges/{k}": digest(merges[k].data) for k in merges.data_vars})
+    out["attrs"] = json.dumps(dict(events.attrs), sort_keys=True, default=str)
+    return out
+
+
+def mesh_child(seed: int) -> int:
+    """Phase 8's process, one rank of a ``torch.distributed`` world started
+    from ``torchrun``'s variables: ``start_distributed_cluster()`` (NCCL), then
+    every path below through the entry points with ``mesh=True``. Prints, as
+    its last line, each path's digests, walls, peak memory and launches."""
+    import torch.distributed as dist
+
+    import marex_tpu_torch as mx
+    from marex_tpu_torch.ops.graph_step import active_cells, graph_jump, graph_step
+    from marex_tpu_torch.ops.min_stencil import ccl_step, pointer_jump
+
+    info = mx.start_distributed_cluster()
+    print(f"rank {info.process_index} of {info.n_processes} ({info.extra}) on cuda:{torch.cuda.current_device()}")
+    kernels = {"ccl_step": ccl_step, "pointer_jump": pointer_jump, "active_cells": active_cells,
+               "graph_step": graph_step, "graph_jump": graph_jump}
+    out = {}
+
+    def counted(name: str, fn, mesh):
+        """``fn()`` with the launch counts set to 0 just before and read just
+        after; a mesh run's outputs must be DTensors."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launch_count = 0
+        res = fn()
+        out[name]["launches"] = {k: f.launch_count for k, f in kernels.items()}
+        out[name]["peak"] = torch.cuda.max_memory_allocated()
+        split = [type(res[0]["extreme_events"].data).__name__] + [type(r["ID_field"].data).__name__ for r in res[1:]]
+        if mesh and set(split) != {"DTensor"}:
+            raise AssertionError(f"phase 8, {name}: the outputs are not DTensors: {split}")
+
+    def path(name: str, detect, make_tracker, merge: bool, mesh):
+        def fn():
+            ds, events, merges, tr, t_det, t_trk, det_peak = run_path("cuda", detect, make_tracker, merge)
+            out[name] = dict(detect_s=t_det, track_s=t_trk, detect_peak=det_peak, stage_walls=tr.stage_walls,
+                             digests=digests(ds, events, merges))
+            return ds, events
+        counted(name, fn, mesh)
+
+    def detect_only(name: str, detect, mesh):
+        def fn():
+            t0 = time.perf_counter()
+            ds = detect()
+            torch.cuda.synchronize()
+            out[name] = dict(detect_s=time.perf_counter() - t0, track_s=0.0,
+                             digests={f"detect/{k}": digest(ds[k].data) for k in ds.data_vars})
+            return (ds,)
+        counted(name, fn, mesh)
+
+    # the small paths first (they also warm the kernels and NCCL), each also run
+    # without a mesh here, on the same input
+    half, half_coords = make_sst(3, 90, 360, seed, "cuda")
+    hfield = mx.Field(half, ("time", "lat", "lon"), half_coords, name="sst")
+    for key, mesh in (("config 2 detect", None), ("config 2 detect (mesh)", True)):
+        detect_only(key, lambda: mx.preprocess_data(hfield, device="cuda", quiet=True, mesh=mesh, **DETECT_CONFIG2), mesh)
+    del half, hfield
+    msst, mcoords, nb, areas = make_mesh_sst(2, 32768, seed, "cuda")
+    mfield = mx.Field(msst, ("time", "ncells"), mcoords, name="sst")
+    for key, mesh in (("config 5", None), ("config 5 (mesh)", True)):
+        path(key,
+             lambda: mx.preprocess_data(mfield, dimensions=MESH_DIMS, coordinates=MESH_COORDS,
+                                        neighbours=mx.Field(nb, ("nv", "ncells"), name="neighbours"),
+                                        cell_areas=mx.Field(areas, ("ncells",), name="cell_areas"), device="cuda",
+                                        quiet=True, mesh=mesh, **DETECT_FIXED),
+             lambda ds: mx.tracker(ds.extreme_events, ds.mask, neighbours=ds.neighbours, cell_areas=ds.cell_areas,
+                                   device="cuda", quiet=True, mesh=mesh, **TRACK_CONFIG5),
+             True, mesh)
+    del msst, mfield
+
+    # configs 4 and 1 at full width; phase 5 ran them without a mesh
+    sst, coords = make_sst(3, 720, 1440, seed, "cuda")
+    field = mx.Field(sst, ("time", "lat", "lon"), coords, name="sst")
+    for name, merge in MESH_FULL_PATHS:
+        path(f"{name} (mesh)", lambda: mx.preprocess_data(field, device="cuda", quiet=True, mesh=True, **DETECT_FIXED),
+             lambda ds: mx.tracker(ds.extreme_events, ds.mask, device="cuda", quiet=True, mesh=True,
+                                   **track_kwargs(720, merge)), merge, True)
+    del sst, field
+
+    dist.destroy_process_group()
+    print(json.dumps(out))
+    return 0
+
+
+def mesh_world(seed: int, phase5: dict, smi: str) -> dict:
+    """Phase 8: ``chip_smoke.py --mesh-child`` in a child process with
+    ``torchrun``'s variables for a world of one rank (``RANK=0
+    WORLD_SIZE=1 LOCAL_RANK=0``, a free port). Each of its mesh runs must
+    equal the run without a mesh bit for bit: configs 4 and 1 at full width
+    against phase 5's digests, config 2's detect and config 5 at phase 4's
+    sizes against the child's own runs without a mesh; each must have
+    launched the kernels it labels on and no other. Returns the mesh runs'
+    launch counts, by path."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port)}
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--mesh-child", "--seed", str(seed)],
+                           env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"phase 8: the one-rank world failed ({child.returncode}):\n"
+                             f"{child.stdout[-3000:]}\n{child.stderr[-6000:]}")
+    lines = child.stdout.strip().splitlines()
+    print(f"  child: {lines[0]}")
+    runs = json.loads(lines[-1])
+    want = {f"{path} (mesh)": phase5[path] for path, _ in MESH_FULL_PATHS}
+    want.update({"config 2 detect (mesh)": runs["config 2 detect"]["digests"],
+                 "config 5 (mesh)": runs["config 5"]["digests"]})
+    grid, mesh_kernels = ("ccl_step", "pointer_jump"), ("active_cells", "graph_step", "graph_jump")
+    launches = {}
+    for name, expected in want.items():
+        got = runs[name]
+        bad = sorted(k for k in expected if got["digests"].get(k) != expected[k])
+        if bad or set(got["digests"]) != set(expected):
+            raise AssertionError(f"phase 8, {name}: differs from the run without a mesh in {bad}")
+        counts = got["launches"]
+        runs_on = () if "detect" in name else mesh_kernels if name.startswith("config 5") else grid
+        for k, n in counts.items():
+            if (k in runs_on) != (n > 0):
+                raise AssertionError(f"phase 8, {name}: {k} launched {n} times: {counts}")
+        launches[f"phase 8 {name}"] = counts
+        print(f"phase 8, {name}: bit-identical to the run without a mesh ({len(expected)} digests); "
+              f"detect {got['detect_s']:.3f} s, track {got['track_s']:.3f} s; peak {got['peak']} bytes "
+              f"({got['peak'] / 2**30:.2f} GiB); launches {json.dumps(counts)}")
+        if got.get("stage_walls"):
+            print(f"  stage_walls: {json.dumps(got['stage_walls'])}")
+    for name in ("config 2 detect", "config 5"):
+        got = runs[name]
+        print(f"phase 8, {name} without a mesh, in the child: detect {got['detect_s']:.3f} s, "
+              f"track {got['track_s']:.3f} s; peak {got['peak']} bytes ({got['peak'] / 2**30:.2f} GiB)")
+    print(f"phase 8: a world of one NCCL rank, {len(want)} mesh runs equal to the runs without a mesh, {wall:.1f} s "
+          f"in all, the first mesh run (config 2's detect) with the world's setup ({smi})")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh-child", action="store_true", help=argparse.SUPPRESS)  # phase 8's world of one rank
     args = ap.parse_args()
+    if args.mesh_child:
+        return mesh_child(args.seed)
 
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
@@ -2337,7 +2533,7 @@ def main() -> int:
                "graph_step": graph_step, "graph_jump": graph_jump}
     mesh_kernels = ("active_cells", "graph_step", "graph_jump")
     launches, refs = main_paths(mx, 720, 1440, args.seed, kernels, "cuda")
-    plot_inputs = refs.pop("plot")
+    plot_inputs, phase5_digests = refs.pop("plot"), refs.pop("digests")
     plot_dir = tempfile.mkdtemp(prefix="marex_smoke_plot_")  # config 8's output store, for phase 7
     atexit.register(shutil.rmtree, plot_dir, True)
     launches.update(mesh_and_regional_paths(mx, args.seed, kernels, plot_inputs))
@@ -2384,6 +2580,10 @@ def main() -> int:
           f"{peak} bytes ({peak / 2**30:.2f} GiB) ({smi})")
     if peak > 40e9:
         raise AssertionError(f"phase 7's peak {peak} bytes is over the 40 GB limit")
+
+    # ---- 8. the multi-device layer: a world of one NCCL rank --------------------
+    torch.cuda.empty_cache()
+    launches.update(mesh_world(args.seed, phase5_digests, smi))
 
     # each kernel's launches on the path that runs it: the merge path, and for the mesh kernels config 5
     source = {"ccl_step": "min_stencil.cu", "pointer_jump": "min_stencil.cu", "active_cells": "graph_step.cu",

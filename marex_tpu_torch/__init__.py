@@ -30,8 +30,11 @@ the tracker's mid-level API (``identify_objects``,
 torch, on the payload's device) and the runtime helpers (``helper``) are
 ported, and so is the third stage, visualisation (``plotX``,
 ``PlotConfig``, ``specify_grid``; matplotlib needed to draw), which reduces
-a field on its own device and brings one slice a frame to the host; the
-sharded multi-device package ``parallel`` is not yet. Tensors stay on
+a field on its own device and brings one slice a frame to the host; so
+is the multi-device package ``parallel``: under ``torchrun``, one process a
+GPU, ``preprocess_data(mesh=True)`` splits space over the processes and
+``tracker(..., mesh=True)`` splits time, with outputs equal to one
+process's. Tensors stay on
 the device they were given; numpy inputs move to ``device`` (default
 ``"cuda"``); lazy zarr payloads stay on disk until read. The
 connected-component labelling runs on hand-written CUDA kernels
@@ -144,10 +147,6 @@ __all__ = [
 
 __version__ = "0.1.0"
 
-# the sharded package comes with multi-GPU
-_NOT_PORTED = {"parallel": "ROADMAP queue 1, item 11 (multi-GPU)"}
-
-
 def __getattr__(name):
     # importlib.import_module, not ``from . import x``: the latter re-enters
     # this __getattr__ during the submodule import
@@ -160,8 +159,6 @@ def __getattr__(name):
     if name in ("specify_grid", "PlotConfig", "plotX"):
         mod = importlib.import_module(".plotX", __name__)
         return mod if name == "plotX" else getattr(mod, name)
-    if name == "io":
-        return importlib.import_module(".io", __name__)
-    if name in _NOT_PORTED:
-        raise AttributeError(f"marex_tpu_torch.{name} is not ported yet: {_NOT_PORTED[name]}")
+    if name in ("io", "parallel"):
+        return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module 'marex_tpu_torch' has no attribute {name!r}")

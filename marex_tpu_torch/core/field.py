@@ -7,7 +7,12 @@ are ``numpy`` arrays, ``torch`` tensors, or lazy zarr arrays
 (:class:`~marex_tpu_torch.io.zarr_lite.LazyZarrArray`, which read only the
 chunks a slice touches). A tensor payload keeps its device, a lazy one stays
 on disk until it is sliced or materialised; ``.values`` always returns host
-numpy. :func:`from_reference` carries a ``marex_tpu`` Field/FieldSet across
+numpy. A payload may also be a ``torch.distributed`` DTensor (the sharded
+outputs of a run on a mesh): operations on it go through DTensor's own
+dispatch (an operation DTensor cannot shard raises, naming it), and only
+``.values``, ``compute()``, ``to_xarray()`` and ``io.zarr_lite.to_zarr``
+gather it whole (``full_tensor()``, a collective that every rank of the
+mesh must call). :func:`from_reference` carries a ``marex_tpu`` Field/FieldSet across
 (duck-typed, so this module never imports ``marex_tpu`` or ``jax``).
 
 Design rules:
@@ -37,11 +42,26 @@ def _is_torch(x: Any) -> bool:
     return isinstance(x, torch.Tensor)
 
 
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a DTensor (the sharded payload of a mesh run)."""
+    if not isinstance(x, torch.Tensor) or type(x) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def gathered(x: Any) -> Any:
+    """``x`` whole on this rank: a DTensor's ``full_tensor()`` (a collective:
+    every rank of its mesh calls it), anything else as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def _asnumpy(x: Any) -> np.ndarray:
     if isinstance(x, np.ndarray):
         return x
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return gathered(x).detach().cpu().numpy()
     return np.asarray(x)
 
 
@@ -300,6 +320,8 @@ class Field:
 
     @property
     def values(self) -> np.ndarray:
+        """The payload as host numpy; a DTensor is gathered whole, which
+        every rank of its mesh must call."""
         return _asnumpy(self.data)
 
     @property
@@ -733,7 +755,8 @@ class Field:
     # interop
     # ------------------------------------------------------------------
     def to_xarray(self):
-        """Convert to an xarray.DataArray (requires xarray)."""
+        """Convert to an xarray.DataArray (requires xarray); a DTensor
+        payload is gathered, which every rank of its mesh must call."""
         from .._dependencies import require_dependencies
 
         require_dependencies(["xarray"], "Field.to_xarray")
@@ -761,9 +784,9 @@ class Field:
 
 
 def on_device(data: ArrayLike, device: Union[str, torch.device]) -> torch.Tensor:
-    """``data`` as a tensor: a tensor keeps its own device, anything else
-    (numpy, or a lazy zarr payload, which is read whole here) is copied to
-    ``device``."""
+    """``data`` as a tensor: a tensor (a DTensor too) keeps its own device,
+    anything else (numpy, or a lazy zarr payload, which is read whole here)
+    is copied to ``device``."""
     if isinstance(data, torch.Tensor):
         return data
     return torch.tensor(np.asarray(data), device=device)

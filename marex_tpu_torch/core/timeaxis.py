@@ -89,3 +89,15 @@ def gather_from_year_doy(ymd: torch.Tensor, tinfo: TimeIndexInfo) -> torch.Tenso
     yi = torch.from_numpy(tinfo.year_index.astype(np.int64)).to(ymd.device)
     di = torch.from_numpy((tinfo.dayofyear - 1).astype(np.int64)).to(ymd.device)
     return ymd[yi, di]
+
+
+def doy_window_indices(window_days: int) -> np.ndarray:
+    """
+    Wrapped day-of-year window gather table: (366, window_days) int32 of
+    0-based day-of-year indices, day d's window ``d - window_days // 2`` ..
+    ``d + window_days // 2`` modulo 366 (``marex_tpu.core.timeaxis``).
+    """
+    half = window_days // 2
+    base = np.arange(366)[:, None]
+    offsets = np.arange(-half, half + 1)[None, :]
+    return ((base + offsets) % 366).astype(np.int32)

@@ -10,8 +10,12 @@ exact percentile, the public shifting-baseline helpers, and the reference's
 validation and output contract (``dat_anomaly``, ``mask``,
 ``extreme_events``, ``thresholds`` and provenance attrs). Unstructured data
 needs explicit ``coordinates``, takes no spatial Hobday window, and carries
-``neighbours`` and ``cell_areas`` through for the tracker. ``mesh`` raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+``neighbours`` and ``cell_areas`` through for the tracker. On a device mesh
+(``mesh=``, or ``parallel.use_mesh``) each process computes one band of
+whole latitude rows (a range of cells on an unstructured mesh), cut from the
+input before it is uploaded; only the Hobday spatial window exchanges rows
+with the neighbouring bands, and the outputs are DTensors split the same
+way, equal to one process's.
 
 Device placement is explicit: a torch tensor input keeps its device; numpy
 or ``Field`` payloads move to ``device`` (default ``"cuda"``). Nothing falls
@@ -22,13 +26,14 @@ included) stays on the device.
 from __future__ import annotations
 
 import logging
+import sys
 import warnings
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .core.field import Coord, Field, FieldSet, as_field, on_device
+from .core.field import Coord, Field, FieldSet, as_field, is_dtensor, on_device
 from .core.timeaxis import TimeIndexInfo, decompose_time, gather_from_year_doy, scatter_to_year_doy
 from .exceptions import ConfigurationError, create_data_validation_error
 from .logging_config import configure_logging, get_logger, log_array_info, log_memory_usage, log_timing
@@ -40,11 +45,6 @@ from .ops import quantile as _quant
 logger = get_logger(__name__)
 
 _ANOMALY_METHODS = ["detrend_harmonic", "shifting_baseline", "fixed_baseline", "detrend_fixed_baseline"]
-_NOT_PORTED = {"mesh": "ROADMAP queue 1, item 11 (multi-GPU)"}
-
-
-def _not_ported(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to marex_tpu_torch yet: {_NOT_PORTED[key]}")
 
 
 # ============================
@@ -134,13 +134,23 @@ def _validate_data_values(data: torch.Tensor) -> None:
     """
     The reference's NaN/inf policy: the spatial mask comes from time step 0;
     any non-finite value at a valid location at any other time is an error.
-    ``data`` is (T, *spatial); the statistics are reduced on its device.
+    ``data`` is (T, *spatial); the statistics are reduced on its device (on
+    a mesh, over every rank's band).
     """
     finite = torch.isfinite(data)
     spatial_mask = finite[0]
     invalid_in_valid = torch.where(spatial_mask, (~finite).sum(dim=0, dtype=torch.int32), 0)
     del finite
-    if not bool(spatial_mask.any()):
+    stats = {
+        "total_values": int(data.numel()),
+        "total_ocean_locations": int(spatial_mask.sum()),
+        "max_invalid": int(invalid_in_valid.max()) if invalid_in_valid.numel() else 0,
+        "total_invalid": int(invalid_in_valid.sum()),
+        "locations_affected": int((invalid_in_valid > 0).sum()),
+    }
+    if _BAND is not None:
+        stats = _BAND.combine(stats, max_keys=("max_invalid",))
+    if stats["total_ocean_locations"] == 0:
         raise create_data_validation_error(
             "Dataset contains no valid (finite) data",
             details="All values in the first time step are NaN or infinite",
@@ -148,12 +158,12 @@ def _validate_data_values(data: torch.Tensor) -> None:
                 "Check your input data for data quality issues",
                 "Verify the data was loaded correctly",
             ],
-            data_info={"total_values": int(data.numel())},
+            data_info={"total_values": stats["total_values"]},
         )
-    max_invalid = int(invalid_in_valid.max())
+    max_invalid = stats["max_invalid"]
     if max_invalid > 0:
-        total_invalid = int(invalid_in_valid.sum())
-        locations_affected = int((invalid_in_valid > 0).sum())
+        total_invalid = stats["total_invalid"]
+        locations_affected = stats["locations_affected"]
         raise create_data_validation_error(
             f"Dataset contains {total_invalid} invalid values in {locations_affected} ocean locations",
             details=(
@@ -168,7 +178,7 @@ def _validate_data_values(data: torch.Tensor) -> None:
             data_info={
                 "total_invalid_values_in_ocean": total_invalid,
                 "locations_affected": locations_affected,
-                "total_ocean_locations": int(spatial_mask.sum()),
+                "total_ocean_locations": stats["total_ocean_locations"],
                 "max_invalid_at_one_location": max_invalid,
                 "total_time_steps": int(data.shape[0]),
             },
@@ -243,6 +253,111 @@ class _Staged:
 
 
 # ============================
+# Device meshes
+# ============================
+
+
+def mesh_of(mesh: Any, device: Union[str, torch.device]):
+    """The mesh an entry point runs on (``parallel.mesh.resolve_mesh``), or
+    None; ``parallel`` is imported only when a mesh is asked for or may be
+    scoped (a default mesh exists only once it has been imported)."""
+    if mesh is None and "marex_tpu_torch.parallel.mesh" not in sys.modules:
+        return None
+    from .parallel.mesh import resolve_mesh
+
+    return resolve_mesh(mesh, device)
+
+
+#: this process's share of the ``preprocess_data`` run on a mesh (None in one process)
+_BAND: Optional["_Band"] = None
+
+
+class _Band:
+    """
+    This process's share of ``preprocess_data`` on a mesh: one band of whole
+    latitude rows (a range of cells on an unstructured mesh) under
+    ``parallel.detect_sharding``, or all of it when the spatial dim does not
+    divide by the mesh's size (the replicated route, logged). Its methods
+    are the stage's only communication: the global statistics of the
+    input's validation and of the threshold range, the Hobday window's halo
+    rows, and the outputs as DTensors.
+    """
+
+    def __init__(self, mesh, da: Field, dimensions: Dict[str, str]):
+        from .parallel.comm import ShardComm
+
+        self.mesh = mesh
+        self.comm = ShardComm(mesh)
+        ydim = dimensions.get("y")
+        self.dim = ydim if ydim is not None and ydim in da.dims else dimensions["x"]
+        self.n = da.sizes[self.dim]
+        self.split = self.n > 0 and self.n % self.comm.size == 0
+        if not self.split:
+            logger.info(f"{self.dim} ({self.n}) does not split over {self.comm.size} ranks: detect runs replicated")
+        self.start, self.stop = self.comm.bounds(self.n) if self.split else (0, self.n)
+        self.coords = {k: c for k, c in da.coords.items() if self.dim in c.dims}
+
+    def _placements(self, axis: int):
+        from torch.distributed.tensor import Replicate, Shard
+
+        return (Shard(axis),) * 2 if self.split else (Replicate(),) * 2
+
+    def local(self, da: Field) -> Field:
+        """This rank's band of the input: a host payload (numpy, a lazy
+        store) is cut here, before any upload; a DTensor is redistributed."""
+        band = slice(self.start, self.stop)
+        if is_dtensor(da.data):
+            from .parallel.mesh import Sharding, constrain
+
+            part = constrain(da.data, Sharding(self.mesh, self._placements(da.dims.index(self.dim)))).to_local()
+            coords = {k: c.isel({self.dim: band}) if self.dim in c.dims else c for k, c in da.coords.items()}
+            return Field(part, da.dims, coords, da.name, da.attrs)
+        return da.isel({self.dim: band})
+
+    def combine(self, stats: Dict[str, int], max_keys: Tuple[str, ...] = ()) -> Dict[str, int]:
+        """Per-band statistics summed over the bands (the largest for ``max_keys``)."""
+        if not self.split:
+            return stats
+        every = self.comm.gather(stats)
+        return {k: (max if k in max_keys else sum)(s[k] for s in every) for k in stats}
+
+    def nan_range(self, lo: float, hi: float) -> Tuple[float, float]:
+        """The threshold range over every band (NaN where none is finite)."""
+        if not self.split:
+            return lo, hi
+        pairs = np.array(self.comm.gather((lo, hi)), dtype=np.float64)
+        if not np.isfinite(pairs).any():
+            return float("nan"), float("nan")
+        return float(np.nanmin(pairs[:, 0])), float(np.nanmax(pairs[:, 1]))
+
+    def row_halo(self, data: torch.Tensor, rows: int) -> Tuple[torch.Tensor, int, int]:
+        """(T, H', W) band with up to ``rows`` rows of the neighbouring bands
+        on each side (none beyond the grid's first and last rows), and how
+        many it got before and after."""
+        if not self.split or rows == 0:
+            return data, 0, 0
+        before, after = self.comm.halo(data, 1, rows, rows)
+        if before.shape[1] + after.shape[1] == 0:
+            return data, 0, 0
+        return torch.cat([before, data, after], dim=1), before.shape[1], after.shape[1]
+
+    def wrap(self, ds: FieldSet) -> FieldSet:
+        """The band's outputs as DTensors of the whole field (this rank's
+        band of each, no communication), on the input's full coordinates."""
+        from .parallel.mesh import Sharding, from_local
+
+        out = {}
+        for name, f in ds.data_vars.items():
+            axis = f.dims.index(self.dim)
+            shape = list(f.shape)
+            shape[axis] = self.n
+            data = from_local(f.data.contiguous(), Sharding(self.mesh, self._placements(axis)), shape)
+            coords = {**f.coords, **{k: c for k, c in self.coords.items() if set(c.dims) <= set(f.dims)}}
+            out[name] = Field(data, f.dims, coords, f.name, f.attrs)
+        return FieldSet(out, {**ds.coords, **self.coords}, ds.attrs)
+
+
+# ============================
 # Public API
 # ============================
 
@@ -288,9 +403,16 @@ def preprocess_data(
     ``thresholds_stn`` with ``std_normalise`` on ``detrend_harmonic``), as
     tensors on the input's device, and provenance attrs. The shifting
     baseline drops its first ``window_year_baseline`` years.
+
+    ``mesh`` (a ``DeviceMesh`` from ``parallel.make_mesh``, or True for a
+    mesh over every process of the ``torch.distributed`` world, one on
+    ``device``'s type; None takes ``parallel.use_mesh``'s) runs the stage on
+    every process of the mesh, each on one band of whole latitude rows (a
+    range of cells on an unstructured mesh), cut from a host input before
+    its upload. The outputs are DTensors split the same way (whole on every
+    rank when the spatial dim does not divide by the mesh's size), equal to
+    one process's run. Every process of the mesh must call it.
     """
-    if mesh is not None:
-        raise _not_ported("mesh", "mesh")
     if detrend_orders is None:
         detrend_orders = [1]
     if verbose is not None or quiet is not None:
@@ -304,6 +426,34 @@ def preprocess_data(
     log_memory_usage(logger, "Initial memory state", logging.DEBUG)
     dimensions, coordinates = _infer_dims_coords(da, dimensions, coordinates)
 
+    kw = dict(
+        method_anomaly=method_anomaly, method_extreme=method_extreme, threshold_percentile=threshold_percentile,
+        window_year_baseline=window_year_baseline, smooth_days_baseline=smooth_days_baseline,
+        window_days_hobday=window_days_hobday, window_spatial_hobday=window_spatial_hobday,
+        std_normalise=std_normalise, detrend_orders=detrend_orders, force_zero_mean=force_zero_mean,
+        reference_period=reference_period, method_percentile=method_percentile, precision=precision,
+        max_anomaly=max_anomaly, dimensions=dimensions, coordinates=coordinates, neighbours=neighbours,
+        cell_areas=cell_areas, donate_input=donate_input, device=device,
+    )
+    mesh = mesh_of(mesh, device)
+    if mesh is None:
+        return _preprocess(da, None, **kw)
+    global _BAND
+    band = _Band(mesh, da, dimensions)
+    _BAND = band
+    try:
+        with band.comm.guard():
+            return _preprocess(band.local(da), band, **kw)
+    finally:
+        _BAND = None
+
+
+def _preprocess(da: Field, band: Optional[_Band], method_anomaly, method_extreme, threshold_percentile,
+                window_year_baseline, smooth_days_baseline, window_days_hobday, window_spatial_hobday, std_normalise,
+                detrend_orders, force_zero_mean, reference_period, method_percentile, precision, max_anomaly,
+                dimensions, coordinates, neighbours, cell_areas, donate_input, device) -> FieldSet:
+    """The body of :func:`preprocess_data` on ``da`` (on a mesh, this rank's
+    ``band`` of it)."""
     # stage the payload on its device once; a copy made here is ours to overwrite
     if not isinstance(da.data, torch.Tensor):
         da = Field(on_device(np.asarray(da.data, dtype=np.float32), device), da.dims, da.coords, da.name, da.attrs)
@@ -365,6 +515,11 @@ def preprocess_data(
         ds["extreme_events_stn"] = extremes_stn
         ds["thresholds_stn"] = thresholds_stn
 
+    n_extremes = int(ds["extreme_events"].data.flatten(1).sum(dim=1, dtype=torch.int32).sum())
+    if band is not None:
+        n_extremes = band.combine({"n": n_extremes})["n"]
+        ds = band.wrap(ds)
+
     if neighbours is not None:
         nb = as_field(neighbours)
         ds["neighbours"] = nb.astype(np.int32)
@@ -408,7 +563,6 @@ def preprocess_data(
         ds.attrs["window_days_hobday"] = window_days_hobday
     ds.attrs.update({"method_percentile": method_percentile, "precision": precision, "max_anomaly": max_anomaly})
 
-    n_extremes = int(ds["extreme_events"].data.flatten(1).sum(dim=1, dtype=torch.int32).sum())
     logger.info(f"Preprocessing completed successfully - {n_extremes} extreme events identified")
     return ds
 
@@ -935,10 +1089,17 @@ def _identify_extremes_hobday(
         )
 
     bin_edges, nbins, centers = _bins(precision, max_anomaly, staged.data.device)
+    anomalies, grid, halo = staged.flat, staged.spatial_shape if staged.is_gridded else None, (0, 0)
+    if _BAND is not None and grid is not None and not exact:
+        # the spatial window of a band's edge rows reaches into the next bands
+        ext, lo, hi = _BAND.row_halo(staged.data, _quant._halo(window_spatial_hobday))
+        anomalies, grid, halo = ext.view(ext.shape[0], -1), tuple(ext.shape[1:]), (lo, hi)
     extremes, thr, pre_min, pre_max = _pipe.hobday_program(
-        staged.flat, staged.tinfo, q, precision, centers, float(bin_edges[3]), nbins, window_days_hobday,
-        window_spatial_hobday, staged.spatial_shape if staged.is_gridded else None, True, exact,
+        anomalies, staged.tinfo, q, precision, centers, float(bin_edges[3]), nbins, window_days_hobday,
+        window_spatial_hobday, grid, True, exact, halo_rows=halo,
     )
+    if _BAND is not None:
+        pre_min, pre_max = _BAND.nan_range(pre_min, pre_max)
     if not exact:
         _warn_threshold_bounds(pre_min, pre_max, bin_edges, max_anomaly)
     return staged.time_field(extremes, "extreme_events"), staged.doy_field(thr, "thresholds")
@@ -960,6 +1121,8 @@ def _identify_extremes_constant(
     extremes, thr, pre_min, pre_max = _pipe.global_extreme_program(
         staged.data, threshold_percentile / 100.0, precision, centers, float(bin_edges[3]), nbins, exact
     )
+    if _BAND is not None:
+        pre_min, pre_max = _BAND.nan_range(pre_min, pre_max)
     if not exact:
         _warn_threshold_bounds(pre_min, pre_max, bin_edges, max_anomaly)
     return (

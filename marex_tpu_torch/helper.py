@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from .core.field import Field, FieldSet
-from .exceptions import DeviceError
+from .exceptions import ConfigurationError, DeviceError
 from .logging_config import get_logger
 
 logger = get_logger(__name__)
@@ -36,9 +36,6 @@ DEFAULT_RUNTIME_CONFIG: Dict[str, Any] = {
 # the reference's JAX precision names, as torch's float32 matmul precisions
 _MATMUL_PRECISION = {"highest": "highest", "float32": "highest", "high": "high", "tensorfloat32": "high",
                      "bfloat16_3x": "high", "bfloat16": "medium", "fastest": "medium"}
-
-_NOT_PORTED_DISTRIBUTED = "ROADMAP queue 1, item 11 (multi-GPU)"
-
 
 @dataclass
 class ClusterInfo:
@@ -94,14 +91,22 @@ configure_devices = configure_dask
 
 
 def get_cluster_info(client: Optional[ClusterInfo] = None) -> ClusterInfo:
-    """Inventory of the CUDA devices this process sees (none: backend "cpu")."""
+    """Inventory of the CUDA devices this process sees (none: backend "cpu"),
+    with this process's rank and the number of processes of the
+    ``torch.distributed`` world (0 and 1 without one)."""
+    import torch.distributed as dist
+
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    joined = dist.is_available() and dist.is_initialized()
     info = ClusterInfo(
         backend="cuda" if n else "cpu",
         n_devices=n,
         n_local_devices=n,
         device_kind=torch.cuda.get_device_name(0) if n else "none",
+        process_index=dist.get_rank() if joined else 0,
+        n_processes=dist.get_world_size() if joined else 1,
         coords=list(range(n)),
+        extra={"process_group_backend": dist.get_backend()} if joined else {},
     )
     logger.info(str(info))
     return info
@@ -127,10 +132,56 @@ def start_distributed_cluster(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
+    backend: Optional[str] = None,
     **kwargs: Any,
 ) -> ClusterInfo:
-    """Multi-process runtime startup: not ported (as ``tracker(mesh=...)``)."""
-    raise NotImplementedError(f"start_distributed_cluster is not ported to marex_tpu_torch yet: {_NOT_PORTED_DISTRIBUTED}")
+    """
+    Multi-process startup, one process a device: joins this process to a
+    ``torch.distributed`` world (``init_process_group`` over TCP at
+    ``coordinator_address``, ``host:port``). The arguments default to the
+    reference's ``COORDINATOR_ADDRESS`` variable, then to ``torchrun``'s
+    ``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``, so a script
+    run by ``torchrun --nproc_per_node=N`` needs none. The backend is
+    ``nccl`` (``gloo`` only when asked); before NCCL starts, the process
+    takes the CUDA device ``LOCAL_RANK``. With no argument and none of those
+    variables nothing is initialised and the run is one process, as in the
+    reference. ``kwargs`` go to ``init_process_group`` (``timeout=``, ...).
+    """
+    import torch.distributed as dist
+
+    env = os.environ
+    address = coordinator_address or env.get("COORDINATOR_ADDRESS")
+    if address is None and "MASTER_ADDR" in env:
+        address = f"{env['MASTER_ADDR']}:{env.get('MASTER_PORT', '29500')}"
+    if num_processes is None and "WORLD_SIZE" in env:
+        num_processes = int(env["WORLD_SIZE"])
+    if process_id is None and "RANK" in env:
+        process_id = int(env["RANK"])
+    if address is None and num_processes is None:
+        logger.info("No coordinator address or world size given: running as one process")
+    elif dist.is_initialized():
+        logger.warning("torch.distributed is already initialised: start_distributed_cluster leaves it as it is")
+    else:
+        if address is None or num_processes is None or process_id is None:
+            raise ConfigurationError(
+                "start_distributed_cluster needs the coordinator address, the number of processes and this process's id",
+                suggestions=["Launch with torchrun, which sets MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK",
+                             "Or pass coordinator_address='host:port', num_processes and process_id"],
+                context={"coordinator_address": address, "num_processes": num_processes, "process_id": process_id},
+            )
+        backend = backend or "nccl"
+        if backend == "nccl":
+            if not torch.cuda.is_available():
+                raise DeviceError(
+                    "The nccl backend needs a CUDA device",
+                    suggestions=["Run on a machine with a GPU", "Pass backend='gloo' for a world on the CPU"],
+                )
+            torch.cuda.set_device(int(env.get("LOCAL_RANK", int(process_id) % torch.cuda.device_count())))
+        dist.init_process_group(backend, init_method=f"tcp://{address}", world_size=int(num_processes),
+                                rank=int(process_id), **kwargs)
+        logger.info(f"torch.distributed initialised ({backend}): process {dist.get_rank()} of {dist.get_world_size()}")
+    configure_dask()
+    return get_cluster_info()
 
 
 def checkpoint_to_zarr(

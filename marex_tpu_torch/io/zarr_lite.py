@@ -32,7 +32,7 @@ import pandas as pd
 import torch
 
 from .._dependencies import has_dependency
-from ..core.field import Coord, Field, FieldSet
+from ..core.field import Coord, Field, FieldSet, gathered, is_dtensor
 from ..exceptions import DataValidationError, DependencyError
 
 _DEFAULT_CHUNK_BYTES = 64 * 2**20
@@ -60,9 +60,10 @@ def _encode_datetimes(arr: np.ndarray) -> Tuple[np.ndarray, Dict[str, Any]]:
 
 
 def _host(arr: Any) -> np.ndarray:
-    """A payload as a host numpy array (a tensor through ``.cpu().numpy()``)."""
+    """A payload as a host numpy array (a tensor through ``.cpu().numpy()``,
+    a DTensor gathered first)."""
     if isinstance(arr, torch.Tensor):
-        return arr.detach().cpu().numpy()
+        return gathered(arr).detach().cpu().numpy()
     return np.asarray(arr)
 
 
@@ -140,14 +141,24 @@ def to_zarr(
     Write a Field or FieldSet as a zarr v2 group (xarray-compatible layout).
     ``chunks`` maps dimension name -> chunk length (defaults: ~64 MB chunks
     along the leading axis) — spatially-chunked stores are what the streaming
-    reader needs for bounded-memory tile reads.
+    reader needs for bounded-memory tile reads. DTensor payloads (a mesh
+    run's) are gathered on every rank, which must all call this, and the
+    first rank writes the store.
     """
+    if isinstance(data, Field):
+        data = FieldSet({data.name or "data": data})
+    if any(is_dtensor(f.data) for f in data.data_vars.values()):
+        import torch.distributed as dist
+
+        whole = FieldSet({k: f._replace(data=gathered(f.data)) for k, f in data.data_vars.items()}, data.coords,
+                         data.attrs)
+        if dist.get_rank() == 0:
+            to_zarr(whole, path, mode=mode, chunks=chunks)
+        dist.barrier()
+        return
     if mode == "w" and os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path, exist_ok=True)
-
-    if isinstance(data, Field):
-        data = FieldSet({data.name or "data": data})
 
     with open(os.path.join(path, ".zgroup"), "w") as f:
         json.dump({"zarr_format": 2}, f)

@@ -331,18 +331,19 @@ def select_labels(labels: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def offset_labels(labels: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+def offset_labels(labels: torch.Tensor, counts: torch.Tensor, base: int = 0) -> torch.Tensor:
     """
     Make per-slice dense labels globally unique by cumulative offsets
     (``marex_tpu.ops.label.offset_labels_across_time``): slice t's labels
-    shift by the number of objects in slices before it. In place, over time
-    chunks of about ``_CHUNK_CELLS`` cells; returns ``labels``.
+    shift by the number of objects in slices before it, plus ``base`` (the
+    objects of the slices before these, on a mesh's other ranks). In place,
+    over time chunks of about ``_CHUNK_CELLS`` cells; returns ``labels``.
 
     labels : (T, ...) int32 per-slice dense labels (0 = background)
     counts : (T,) per-slice object counts
     """
     T = labels.shape[0]
-    offsets = (torch.cumsum(counts, 0) - counts).to(device=labels.device, dtype=torch.int32)
+    offsets = (torch.cumsum(counts, 0) - counts + base).to(device=labels.device, dtype=torch.int32)
     shape = (T,) + (1,) * (labels.dim() - 1)
     tb = max(1, _CHUNK_CELLS // max(labels[0].numel(), 1))
     for t0 in range(0, T, tb):

@@ -176,10 +176,14 @@ def hobday_program(
     grid_shape: Optional[Tuple[int, int]],
     wrap_lon: bool,
     exact: bool,
+    halo_rows: Tuple[int, int] = (0, 0),
 ):
     """
     Day-of-year thresholds and the comparison. ``anomalies`` is (T, S);
-    ``grid_shape`` is None on a mesh, which has no spatial window.
+    ``grid_shape`` is None on a mesh, which has no spatial window. With
+    ``halo_rows = (lo, hi)`` the grid's first ``lo`` and last ``hi`` rows are
+    a band's halo: they feed the spatial window of the rows between and are
+    left out of every output.
     Returns ``(extremes (T, S) bool, thresholds (366, S) float32, pre_min,
     pre_max)``. The approximate path NaNs land (non-finite at the first
     step) and clamps at ``lower_bound``; ``pre_min``/``pre_max`` are the
@@ -196,6 +200,11 @@ def hobday_program(
             wrap_lon=wrap_lon,
         )
         del bins
+        lo, hi = halo_rows
+        if lo or hi:
+            H, W = grid_shape
+            thr = thr.view(-1, H, W)[:, lo : H - hi].reshape(thr.shape[0], -1)
+            anomalies = anomalies.view(-1, H, W)[:, lo : H - hi].reshape(anomalies.shape[0], -1)
         thr.masked_fill_(~torch.isfinite(anomalies[0]), torch.nan)
         thr, pre_min, pre_max = _clamp_below(thr, lower_bound)
     extremes = torch.empty(anomalies.shape, dtype=torch.bool, device=anomalies.device)

@@ -30,9 +30,16 @@ Preprocessing checkpoints (``checkpoint='save'``, ``'load'``, ``'auto'``)
 persist the filtered field and its statistics as a zarr store and an
 ``.npz`` under ``temp_dir``. :meth:`tracker.run_streamed` tracks a field
 larger than device memory in time blocks (``track_stream.py``), on the same
-march through a windowed label store. ``mesh`` raises
-``NotImplementedError`` naming the ROADMAP item that brings it. Device
-placement is explicit: a torch tensor input keeps its device; numpy or
+march through a windowed label store.
+
+On a device mesh (``mesh=``, or ``parallel.use_mesh``) each process tracks
+one slab of time slices: the spatial fill and the labels are local, the
+temporal fill takes ``T_fill + 1`` slices from the neighbouring slabs, the
+area filter and the event statistics gather small per-slice tables, no-merge
+labelling joins the slabs' per-slice labels in two levels, and the merge
+march runs slab after slab, each rank handing the next the march's state
+(``_ShardStore``). The outputs equal one process's; ``ID_field`` is a
+DTensor split over time. Device placement is explicit: a torch tensor input keeps its device; numpy or
 ``Field`` payloads move to ``device``; a lazy zarr payload stays on disk
 until ``run()`` reads it whole or ``run_streamed()`` a block at a time.
 """
@@ -51,7 +58,8 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .core.field import Coord, Field, FieldSet, as_field, on_device
+from .core.field import Coord, Field, FieldSet, as_field, gathered, is_dtensor, on_device
+from .detect import mesh_of
 from .exceptions import ConfigurationError, TrackingError, create_coordinate_error, create_data_validation_error
 from .logging_config import configure_logging, get_logger, log_array_info, log_memory_usage, log_timing
 from .ops import label as _label
@@ -70,8 +78,6 @@ MAX_PARENTS = 10  # parent capacity per merge event
 #: fixpoint, whose flat indices are int32. Both give the same ids; tests lower
 #: it to hold them equal.
 TWO_LEVEL_CELLS = _label.BIG
-
-_NOT_PORTED = {"mesh": "ROADMAP queue 1, item 11 (multi-GPU)"}
 
 # the scalar statistics of preprocessing, in the order of ``object_stats``
 _STATS_KEYS = (
@@ -105,12 +111,25 @@ class _SliceStore:
     (``track_stream._WindowStore``) runs the same march.
     """
 
+    #: whether the march's steps here end the series (the end-of-series
+    #: consolidation is this store's)
+    ends_series = True
+
     def __init__(self, labels: torch.Tensor):
         self.dev = labels
 
     @property
     def T(self) -> int:
         return self.dev.shape[0]
+
+    def steps(self, march: "_March"):
+        """The time steps the march runs here: all of them."""
+        return range(self.T)
+
+    def end_march(self, march: "_March", error: Optional[BaseException]) -> None:
+        """Called when the steps end, with the error that ended them, if any."""
+        if error is not None:
+            raise error
 
     def initial_pairs(self, tr: "tracker") -> List[Optional[np.ndarray]]:
         """The pair cache at the start: every consecutive pair's overlaps."""
@@ -135,6 +154,26 @@ class _SliceStore:
 
     def flush(self) -> torch.Tensor:
         return self.dev
+
+
+class _March:
+    """The merge march's state between its steps: the object table, the pair
+    cache, the next free id and the merge records."""
+
+    def __init__(self, table: "ObjectTable", pairs: List[Optional[np.ndarray]], next_new_id: int):
+        self.table = table
+        self.pairs = pairs
+        self.next_new_id = next_new_id
+        self.merge_times: List[Any] = []
+        self.merge_child_ids: List[np.ndarray] = []
+        self.merge_parent_ids: List[np.ndarray] = []
+        self.merge_areas: List[np.ndarray] = []
+
+    def records(self) -> Tuple[List[Any], ...]:
+        return self.merge_times, self.merge_child_ids, self.merge_parent_ids, self.merge_areas
+
+    def set_records(self, records: Tuple[List[Any], ...]) -> None:
+        self.merge_times, self.merge_child_ids, self.merge_parent_ids, self.merge_areas = (list(r) for r in records)
 
 
 class ObjectTable:
@@ -166,6 +205,130 @@ class ObjectTable:
         return np.array(sorted(self._rows.keys()), dtype=np.int64)
 
 
+class _ShardStore(_SliceStore):
+    """
+    The merge march's label field on a mesh (the protocol of
+    :class:`_SliceStore`): this rank's slab of slices ``[t0, t1)`` on its
+    device, and the two slices before it once the march reaches it.
+
+    The march is sequential in time, so the ranks run their steps one after
+    another. Rank r waits for rank r-1's hand-over (slices t0-2 and t0-1, the
+    object table, the next free id, the merge records and the pair-cache
+    entry of those two slices), runs its steps, sends slice t0-1 back to
+    rank r-1 (its step t0's consolidation may change it), hands the same
+    state on to rank r+1 and takes back its own last slice from it. Each card
+    holds only its slab; the march is no faster than in one process. Every
+    message is sent even after an error, carrying the error instead, so no
+    rank waits for one that never comes; ``end_march`` then raises it on
+    every rank, and otherwise gives every rank the last rank's table and
+    records.
+    """
+
+    def __init__(self, labels: torch.Tensor, comm, T: int, t0: int, n_ids: int):
+        super().__init__(labels)
+        self.comm, self._T, self.t0, self.n_ids = comm, T, t0, n_ids
+        self.t1 = t0 + labels.shape[0]
+        self.prev = comm.index - 1 if comm.index > 0 else None
+        self.next = comm.index + 1 if comm.index + 1 < comm.size else None
+        self.halo: Dict[int, torch.Tensor] = {}
+        self._sent_back = self._sent_on = self._taken_back = False
+
+    @property
+    def T(self) -> int:
+        return self._T
+
+    @property
+    def ends_series(self) -> bool:
+        return self.next is None
+
+    def initial_pairs(self, tr: "tracker") -> List[Optional[np.ndarray]]:
+        pairs: List[Optional[np.ndarray]] = [None] * max(self.T - 1, 0)
+        pairs[self.t0 : self.t1 - 1] = tr._per_slice_pairs_device(self.dev)
+        return pairs
+
+    def first_new_id(self, table: "ObjectTable") -> int:
+        return self.n_ids + 1
+
+    def get_dev(self, t: int) -> torch.Tensor:
+        return self.dev[t - self.t0] if t >= self.t0 else self.halo[t]
+
+    def set_dev(self, t: int, sl: torch.Tensor) -> None:
+        if t >= self.t0:
+            self.dev[t - self.t0] = sl
+        else:
+            self.halo[t] = sl
+
+    def _edge(self, t1: int) -> List[int]:
+        """The slices a hand-over carries: the two before ``t1``."""
+        return [t for t in (t1 - 2, t1 - 1) if t >= 0]
+
+    def _recv(self, src: int, n_slices: int) -> Tuple[Any, List[torch.Tensor]]:
+        """A message and its slices; the error it carries is raised."""
+        from .parallel.comm import rebuilt_error
+
+        kind, obj = self.comm.recv_obj(src)
+        if kind == "error":
+            raise rebuilt_error(obj)
+        shape, dtype = self.dev.shape[1:], self.dev.dtype
+        return obj, [self.comm.recv_tensor(shape, dtype, src) for _ in range(n_slices)]
+
+    def steps(self, march: "_March"):
+        if self.prev is not None:
+            state, slices = self._recv(self.prev, len(self._edge(self.t0)))
+            own = march.table
+            march.table = ObjectTable()
+            march.table._rows = state["table"]
+            march.table._rows.update(own._rows)
+            march.next_new_id = state["next_new_id"]
+            march.set_records(state["records"])
+            if self.t0 >= 2:
+                march.pairs[self.t0 - 2] = state["pairs"]
+            self.halo = dict(zip(self._edge(self.t0), slices))
+        yield from range(self.t0, self.t1)
+        if self.prev is not None:
+            self._sent_back = True
+            self.comm.send(("ok", None), [self.halo[self.t0 - 1]], self.prev)
+        if self.next is not None:
+            self._sent_on = True
+            state = {"table": march.table._rows, "next_new_id": march.next_new_id, "records": march.records(),
+                     "pairs": march.pairs[self.t1 - 2] if self.t1 >= 2 else None}
+            self.comm.send(("ok", state), [self.get_dev(t) for t in self._edge(self.t1)], self.next)
+            self._taken_back = True
+            _, (last,) = self._recv(self.next, 1)
+            self.set_dev(self.t1 - 1, last)
+
+    def end_march(self, march: "_March", error: Optional[BaseException]) -> None:
+        if error is not None:
+            from .parallel.comm import portable_error
+
+            message = ("error", portable_error(error))
+            if self.prev is not None and not self._sent_back:
+                self.comm.send(message, [], self.prev)
+            if self.next is not None and not self._sent_on:
+                self.comm.send(message, [], self.next)
+            if self.next is not None and not self._taken_back:
+                try:
+                    self._recv(self.next, 1)
+                except Exception:
+                    pass  # the next rank failed too: this rank's own error goes on
+        self.comm.agree(error)
+        table, records, next_new_id = self.comm.broadcast(
+            (march.table._rows, march.records(), march.next_new_id), self.comm.size - 1)
+        march.table = ObjectTable()
+        march.table._rows = table
+        march.set_records(records)
+        march.next_new_id = next_new_id
+
+    def final_pairs(self, tr: "tracker") -> List[np.ndarray]:
+        """Every consecutive pair's overlaps: this slab's, the pair across its
+        end (with the next rank's first slice), gathered in time order."""
+        _, after = self.comm.halo(self.dev, 0, 0, 1)
+        own = tr._per_slice_pairs_device(self.dev)
+        if after.shape[0]:
+            own += tr._per_slice_pairs_device(torch.stack([self.dev[-1], after[0]]))
+        return [p for part in self.comm.gather(own) for p in part]
+
+
 class tracker:
     """
     Identify and track binary objects through time (API-compatible with
@@ -175,6 +338,16 @@ class tracker:
     ``data_bin`` / ``mask`` may be Fields (of this package or duck-typed
     equivalents) with numpy or torch payloads; ``device`` places payloads
     that are not already tensors.
+
+    ``mesh`` (a ``DeviceMesh`` from ``parallel.make_mesh``, or True for a
+    mesh over every process of the ``torch.distributed`` world; None takes
+    ``parallel.use_mesh``'s) tracks on every process of the mesh, each on
+    one slab of time slices (``parallel.track_sharding``; a DTensor input
+    is redistributed, a host one cut before its upload), or on all of them
+    when time does not divide by the mesh's size (the replicated route).
+    Every process must construct the tracker and call :meth:`run`; the
+    outputs equal one process's, ``ID_field`` a DTensor split over time and
+    the (time, ID) tables whole on every rank.
     """
 
     def __init__(
@@ -206,10 +379,16 @@ class tracker:
         merge_ledger_mode: str = "reference",
         device: Union[str, torch.device] = "cuda",
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(f"mesh is not ported to marex_tpu_torch yet: {_NOT_PORTED['mesh']}")
         if verbose is not None or quiet is not None:
             configure_logging(verbose=verbose, quiet=quiet)
+        self.mesh = mesh_of(mesh, device)
+        #: the mesh's collectives while time is split over it (None in one
+        #: process and on the replicated route)
+        self._comm = None
+        if self.mesh is not None:
+            from .parallel.mesh import mesh_device
+
+            device = mesh_device(self.mesh)
         if merge_ledger_mode not in ("reference", "siblings"):
             raise ConfigurationError(
                 f"Invalid merge_ledger_mode '{merge_ledger_mode}'",
@@ -229,6 +408,8 @@ class tracker:
 
         self.data_bin = as_field(data_bin)
         self.mask = as_field(mask)
+        if is_dtensor(self.mask.data):  # the mask is whole on every rank
+            self.mask = self.mask._replace(data=gathered(self.mask.data))
         if not isinstance(self.mask.data, (torch.Tensor, np.ndarray)):
             self.mask = self.mask.compute()  # a lazy zarr mask: one slice, read now
         log_array_info(logger, self.data_bin, "Binary input data")
@@ -239,7 +420,6 @@ class tracker:
         self.max_iteration = max_iteration
         self.checkpoint = checkpoint
         self.debug = debug
-        self.mesh = mesh
         self.allow_merging = allow_merging
         self.nn_partitioning = nn_partitioning
         self.coordinate_units = coordinate_units
@@ -292,8 +472,20 @@ class tracker:
 
         # payloads on their device: the binary field, and the mask beside it.
         # A lazy zarr payload stays on disk: run() reads it whole,
-        # run_streamed() a block at a time
-        if isinstance(self.data_bin.data, (torch.Tensor, np.ndarray)):
+        # run_streamed() a block at a time; on a mesh run() takes this rank's slab
+        self._n_time = self.data_bin.sizes[self.timedim]
+        self._t0 = 0  # this rank's first slice
+        if self.mesh is not None:
+            from .parallel.comm import ShardComm
+
+            comm = ShardComm(self.mesh)
+            if self._n_time > 0 and self._n_time % comm.size == 0:
+                self._comm = comm
+                self._t0 = comm.bounds(self._n_time)[0]
+            else:
+                logger.info(f"{self.timedim} ({self._n_time}) does not split over {comm.size} ranks: "
+                            "tracking runs replicated")
+        elif isinstance(self.data_bin.data, (torch.Tensor, np.ndarray)):
             self.data_bin = self.data_bin._replace(data=on_device(self.data_bin.data, device).contiguous())
             device = self.data_bin.data.device
         self.mask_dev = on_device(self.mask.data, device).to(device)
@@ -588,6 +780,12 @@ class tracker:
         FieldSet, or ``(events, merges)`` with ``return_merges`` when
         merging is on. ``checkpoint`` ('save', 'load' or 'auto') overrides
         the tracker's own (:meth:`run_preprocess`)."""
+        if self._comm is not None:
+            with self._comm.guard():
+                return self._run(return_merges, checkpoint)
+        return self._run(return_merges, checkpoint)
+
+    def _run(self, return_merges: bool, checkpoint: Optional[str]):
         logger.info("Starting complete tracking pipeline")
         log_memory_usage(logger, "Pipeline start", logging.DEBUG)
 
@@ -625,6 +823,12 @@ class tracker:
         """
         from .track_stream import run_tracking_streamed
 
+        if self.mesh is not None:
+            raise ConfigurationError(
+                "run_streamed takes no mesh",
+                details="The streamed tracker runs in one process, as in marex_tpu",
+                suggestions=["Call run() on the mesh, or build the tracker without mesh= for run_streamed()"],
+            )
         return run_tracking_streamed(
             self, out_path, memory_budget_mb=memory_budget_mb, block_T=block_T, return_merges=return_merges
         )
@@ -645,6 +849,47 @@ class tracker:
         finally:
             d = self.stage_walls
             d[name] = round(d.get(name, 0.0) + (time.perf_counter() - t0), 4)
+
+    # -- a mesh's slabs ------------------------------------------------
+
+    def _joined(self, local: np.ndarray) -> np.ndarray:
+        """A host array of this rank's slices (or their objects) joined with
+        the other ranks' in time order, as one process has it."""
+        return local if self._comm is None else np.concatenate(self._comm.gather(local))
+
+    def _joined_dev(self, local: torch.Tensor) -> torch.Tensor:
+        """:meth:`_joined` of a (T_rank, ...) tensor, on its device."""
+        if self._comm is None:
+            return local
+        return torch.from_numpy(self._joined(local.cpu().numpy())).to(local.device)
+
+    def _sharded(self, local: torch.Tensor) -> torch.Tensor:
+        """A (T_rank, ...) result of this rank's slices as the whole field's
+        DTensor under ``track_sharding`` (replicated on that route); as it is
+        in one process."""
+        if self.mesh is None:
+            return local
+        from .parallel.mesh import from_local, replicated, track_sharding
+
+        sharding = track_sharding(self.mesh) if self._comm is not None else replicated(self.mesh)
+        return from_local(local.contiguous(), sharding, (self._n_time,) + tuple(local.shape[1:]))
+
+    def _slab(self) -> torch.Tensor:
+        """The binary field this rank tracks, on its device: all of it in one
+        process and on the replicated route, else its slab of slices. A
+        DTensor is redistributed; a host payload is cut before the upload."""
+        data = self.data_bin.data
+        if self.mesh is None:
+            return on_device(data, self.device).contiguous()
+        if is_dtensor(data):
+            from .parallel.mesh import constrain, replicated, track_sharding
+
+            sharding = track_sharding(self.mesh) if self._comm is not None else replicated(self.mesh)
+            return constrain(data, sharding).to_local().to(self.device).contiguous()
+        if self._comm is not None:
+            data = data[self._t0 : self._t0 + self._n_time // self._comm.size]
+        data = data if isinstance(data, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(data))
+        return data.to(self.device).contiguous()
 
     # ------------------------------------------------------------------
     # Stage 1: preprocessing
@@ -672,10 +917,19 @@ class tracker:
         return _morph.binary_close_open_grid(data, int(R_fill), self.mask_dev, mode="wrap" if self._wrap else "edge")
 
     def fill_time_gaps(self, data: torch.Tensor) -> torch.Tensor:
-        """Temporal closing, then a re-fill of new spatial holes at R_fill // 2."""
+        """Temporal closing, then a re-fill of new spatial holes at R_fill //
+        2. On a mesh ``data`` is this rank's slab, closed with ``T_fill + 1``
+        slices of the neighbouring slabs on each side (the closing's False
+        pad only at the series' own ends)."""
         if self.T_fill == 0:
             return data
-        closed = _morph.binary_close_time(data, int(self.T_fill))
+        if self._comm is None:
+            closed = _morph.binary_close_time(data, int(self.T_fill))
+        else:
+            k = int(self.T_fill) + 1
+            before, after = self._comm.halo(data, 0, k, k)
+            closed = _morph.binary_close_time(torch.cat([before, data, after]), int(self.T_fill))
+            closed = closed[before.shape[0] : before.shape[0] + data.shape[0]]
         return self.fill_holes(closed, R_fill=self.R_fill // 2)
 
     def filter_small_objects(self, data: torch.Tensor):
@@ -688,13 +942,19 @@ class tracker:
         marks ``object_ids_keep[0] = -1`` meaning to skip the background id 0,
         which is never in that list, so its first real object goes. On a mesh
         nothing of the kind happens (:meth:`_filter_small_objects_mesh`).
+
+        On a device mesh ``data`` is this rank's slab: the per-slice counts and
+        the object areas are gathered in time order, so the threshold and
+        the statistics are one process's, and only the rank that holds the
+        first object drops it.
         """
         if self.unstructured_grid:
             return self._filter_small_objects_mesh(data)
         with self._stage_ctx("filter/ccl_fixpoint"):
             root_flat, counts_dev, iters = _label.label_slices_grid_roots(data, wrap_x=self._wrap)
-            counts = counts_dev.cpu().numpy()
+            counts_own = counts_dev.cpu().numpy()
         self.ccl_iterations["filter/ccl_fixpoint"] = iters
+        counts = self._joined(counts_own)
         L = int(counts.max()) if counts.size else 0
         if L == 0:
             raise TrackingError(
@@ -706,34 +966,39 @@ class tracker:
                     "Consider lowering the extreme threshold percentile",
                 ],
             )
-        t_first = int(np.argmax(counts > 0))
+        # the first object is in slice t_first, which this rank may hold
+        t_first = int(np.argmax(counts > 0)) - self._t0
+        holds_first = 0 <= t_first < data.shape[0]
+        L_own = int(counts_own.max()) if counts_own.size else 0
         with self._stage_ctx("filter/root_stats"):
-            root_ids, areas_dev, area_cell, _ = _label.slice_root_stats(root_flat, L)
+            root_ids, areas_dev, area_cell, _ = _label.slice_root_stats(root_flat, L_own)
             areas_tj = areas_dev.cpu().numpy()  # (T, L) ascending root order, 0 padded
-        slot = np.arange(L)[None, :] < counts[:, None]
-        object_areas = areas_tj[slot]
+        slot = np.arange(L_own)[None, :] < counts_own[:, None]
+        object_areas = self._joined(areas_tj[slot])  # the first object's area first
 
         N_prefiltered = int(object_areas.size)
         if self._use_absolute_filtering:
             area_threshold = float(self.area_filter_absolute)
         else:
             area_threshold = float(np.percentile(object_areas, self.area_filter_quartile * 100.0))
-        keep_first = areas_tj[t_first, 0] >= area_threshold
+        keep_first = object_areas[0] >= area_threshold
         N_filtered = int(np.sum(object_areas >= area_threshold)) - int(keep_first)
 
         with self._stage_ctx("filter/apply"):
             filtered = area_cell >= torch.tensor(area_threshold, dtype=torch.float32, device=area_cell.device)
-            first = root_flat[t_first] == root_ids[t_first, 0]
-            filtered[t_first].logical_and_(~first)
+            if holds_first:
+                first = root_flat[t_first] == root_ids[t_first, 0]
+                filtered[t_first].logical_and_(~first)
             out = filtered.view(data.shape)
-        if self.allow_merging or data.numel() >= TWO_LEVEL_CELLS:
+        if self.allow_merging or data.numel() >= TWO_LEVEL_CELLS or self._comm is not None:
             # Area filtering drops whole components, so the filtered field's
             # per-slice roots are the kept ones of root_flat: the merge path
             # and the two-level 3-D labelling densify these instead of
             # labelling the field again. The keep table repeats
             # filter/apply's float32 compare.
             keep = slot & (areas_tj >= np.float32(area_threshold))
-            keep[t_first, 0] = False
+            if holds_first:
+                keep[t_first, 0] = False
             self._label_reuse = (weakref.ref(out), root_flat, root_ids, torch.from_numpy(keep).to(root_ids.device))
         return out, area_threshold, object_areas, N_prefiltered, N_filtered
 
@@ -744,7 +1009,8 @@ class tracker:
         statistics; an object is kept when its count is strictly above the
         threshold; no first object is dropped."""
         with self._stage_ctx("filter/ccl_fixpoint"):
-            labels, counts = self._label_slices(data, "filter/ccl_fixpoint")
+            labels, counts_own = self._label_slices(data, "filter/ccl_fixpoint")
+        counts = self._joined(counts_own)
         L = int(counts.max()) if counts.size else 0
         if L == 0:
             raise TrackingError(
@@ -756,12 +1022,13 @@ class tracker:
                     "Consider lowering the extreme threshold percentile",
                 ],
             )
+        L_own = int(counts_own.max()) if counts_own.size else 0
         with self._stage_ctx("filter/root_stats"):
-            areas_tl = _label.label_cell_counts(labels, L).float().cpu().numpy()
-        object_areas = areas_tl[:, 1:][np.arange(L)[None, :] < counts[:, None]]
+            areas_tl = _label.label_cell_counts(labels, L_own).float().cpu().numpy()
+        object_areas = areas_tl[:, 1:][np.arange(L_own)[None, :] < counts_own[:, None]]
 
         min_sz = 5 if self._use_absolute_filtering else 50
-        object_areas = object_areas[object_areas > min_sz]
+        object_areas = self._joined(object_areas[object_areas > min_sz])
         if len(object_areas) == 0:
             raise TrackingError(
                 "No objects found for area-based filtering",
@@ -798,15 +1065,19 @@ class tracker:
         )
 
     def _save_checkpoint(self, data_filtered: torch.Tensor, object_stats: Tuple) -> None:
-        """Persist the filtered field (a zarr store) and its statistics (npz)."""
+        """Persist the filtered field (a zarr store) and its statistics (npz).
+        On a mesh the first rank writes the whole field, gathered from every
+        rank's slab, and every rank waits for it."""
         from .io.zarr_lite import to_zarr
 
         bin_path, stats_path = self._checkpoint_paths()
-        os.makedirs(os.path.dirname(bin_path), exist_ok=True)
+        writes = self.mesh is None or torch.distributed.get_rank() == 0
+        if writes:
+            os.makedirs(os.path.dirname(bin_path), exist_ok=True)
+            np.savez(stats_path, **dict(zip(_STATS_KEYS, object_stats)))
         dims = (self.timedim,) + self._spatial_dims()
-        f = Field(data_filtered, dims, self.data_bin.coords, name="data_bin_preproc")
+        f = Field(self._sharded(data_filtered), dims, self.data_bin.coords, name="data_bin_preproc")
         to_zarr(FieldSet({"data_bin_preproc": f}), bin_path)
-        np.savez(stats_path, **dict(zip(_STATS_KEYS, object_stats)))
         logger.info(f"Saved preprocessing checkpoint to {bin_path}")
 
     def _load_checkpoint(self):
@@ -826,8 +1097,10 @@ class tracker:
                 ],
                 context={"bin_path": bin_path, "stats_path": stats_path},
             )
-        values = np.asarray(open_zarr(bin_path)["data_bin_preproc"].values, dtype=bool)
-        data = torch.from_numpy(values).to(self.device)
+        stored = open_zarr(bin_path, lazy=True)["data_bin_preproc"].data
+        if self._comm is not None:  # this rank's slab only
+            stored = stored[self._t0 : self._t0 + self._n_time // self._comm.size]
+        data = torch.from_numpy(np.asarray(stored, dtype=bool)).to(self.device)
         with np.load(stats_path) as npz:
             stats = tuple(int(npz[k]) if k.startswith("N_") else float(npz[k]) for k in _STATS_KEYS)
         logger.info(f"Loaded preprocessing checkpoint from {bin_path}")
@@ -847,8 +1120,8 @@ class tracker:
         if checkpoint == "auto" and all(os.path.exists(p) for p in self._checkpoint_paths()):
             return self._load_checkpoint()
 
-        data = on_device(self.data_bin.data, self.device).contiguous()
-        raw_area = self.compute_area(data)
+        data = self._slab()
+        raw_area = self._joined(self.compute_area(data))
 
         logger.info(f"Filling spatial holes with radius R_fill={self.R_fill}")
         with self._stage_ctx("fill_spatial"):
@@ -864,7 +1137,7 @@ class tracker:
         del data
         logger.info(f"Filtered {N_pre} -> {N_post} objects (threshold: {area_threshold})")
 
-        processed_area = self.compute_area(data_filtered)
+        processed_area = self._joined(self.compute_area(data_filtered))
 
         total_area_IDed = float(object_areas.sum())
         accepted_area = float(object_areas[object_areas > area_threshold].sum())
@@ -899,37 +1172,51 @@ class tracker:
             logger.info("Finished tracking all extreme events!")
             return events_ds, merges_ds, N_events
         with self._stage_ctx("ccl3d"):
-            labels, N_events = self._label_spacetime(data_bin_preprocessed)
-        events_ds = FieldSet({"ID_field": self._id_field(labels)})
+            labels, N_events = self._label_spacetime(data_bin_preprocessed, slab=True)
+        events_ds = FieldSet({"ID_field": self._id_field(self._sharded(labels))})
         logger.info("Finished tracking all extreme events!")
         return events_ds, FieldSet(), N_events
 
     def _id_field(self, labels: torch.Tensor) -> Field:
         return Field(labels, (self.timedim,) + self._spatial_dims(), self.data_bin.coords, name="ID_field")
 
-    def _label_spacetime(self, data: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    def _label_spacetime(self, data: torch.Tensor, slab: bool = False) -> Tuple[torch.Tensor, int]:
         """3x3x3-connected event labels of a (T, H, W) field, ids 1..N in
         order of each event's first cell in (t, y, x) order: the fused 3-D
-        fixpoint below ``TWO_LEVEL_CELLS`` cells, two levels from there."""
-        if data.numel() >= TWO_LEVEL_CELLS:
-            return self._label_spacetime_two_level(data)
+        fixpoint below ``TWO_LEVEL_CELLS`` cells, two levels from there and
+        whenever ``data`` is this rank's slab of a field split over a mesh."""
+        if data.numel() >= TWO_LEVEL_CELLS or (slab and self._comm is not None):
+            return self._label_spacetime_two_level(data, slab)
         labf, iters = _label.label_spacetime_roots(data, wrap_x=self._wrap)
         self.ccl_iterations["ccl3d"] = iters
         dense, n_events = _label.densify_spacetime_roots(labf)
         return dense.view(data.shape), n_events
 
-    def _label_spacetime_two_level(self, data: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    def _label_spacetime_two_level(self, data: torch.Tensor, slab: bool = False) -> Tuple[torch.Tensor, int]:
         """The reference's two-level labelling (``track._label_spacetime_two_level``):
         per-slice labels (the area filter's roots when ``data`` is its
         output) made unique by cumulative offsets, the inter-slice edges of
         3x3x3 connectivity on the device, the union-find of the objects on
         the host, then one remap in place. An event's id is the rank of its
-        first object, which holds its first cell: the fused route's ids."""
-        labels, counts = self._label_slices(data, "ccl3d")
-        labels = _label.offset_labels(labels, torch.from_numpy(counts))
+        first object, which holds its first cell: the fused route's ids. On a
+        mesh (``slab``) the offsets count every rank's earlier slices, the
+        edges include those between the previous slab's last slice and this
+        slab's first, and every rank unions the gathered edge lists."""
+        labels, counts_own = self._label_slices(data, "ccl3d")
+        split = slab and self._comm is not None
+        counts = self._joined(counts_own) if split else counts_own
+        base = int(counts[: self._t0].sum()) if split else 0
+        labels = _label.offset_labels(labels, torch.from_numpy(counts_own), base)
         n_obj = int(counts.sum())
         with self._stage_ctx("ccl3d/edges"):
-            edges = _overlap.adjacency_edges(labels, n_obj + 1, self._wrap).cpu().numpy()
+            edges = _overlap.adjacency_edges(labels, n_obj + 1, self._wrap)
+            if split:
+                before, _ = self._comm.halo(labels, 0, 1, 0)
+                edges = torch.cat([_overlap.adjacency_edges(torch.cat([before, labels[:1]]), n_obj + 1, self._wrap),
+                                   edges])
+                edges = np.unique(np.concatenate(self._comm.gather(edges.cpu().numpy())), axis=0)
+            else:
+                edges = edges.cpu().numpy()
         with self._stage_ctx("ccl3d/union"):
             comp = _overlap.union_find_components(edges, np.arange(1, n_obj + 1))
             lookup = np.zeros(n_obj + 1, np.int32)
@@ -947,9 +1234,10 @@ class tracker:
 
     def _payload(self, field: Any, dtype: torch.dtype) -> torch.Tensor:
         """A Field, tensor or array as a contiguous tensor of ``dtype`` on the
-        tracker's device."""
+        tracker's device; a DTensor whole (gathered, which every rank of its
+        mesh must call: the mid-level API works on whole fields)."""
         data = field.data if isinstance(field, Field) else field
-        return on_device(data, self.device).to(self.device, dtype).contiguous()
+        return on_device(gathered(data), self.device).to(self.device, dtype).contiguous()
 
     def identify_objects(self, data_bin: Any, time_connectivity: bool = False):
         """
@@ -1071,17 +1359,21 @@ class tracker:
         """Split/merge-aware tracking: per-slice objects, the march, then the
         event clustering. Returns ``(events_ds, merge_events, N_events)``."""
         with self._stage_ctx("ccl"):
-            labels, counts = self._label_slices(data_bin)
+            labels, counts_own = self._label_slices(data_bin)
+        counts = self._joined(counts_own)
         offsets = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+        own = slice(self._t0, self._t0 + labels.shape[0])
         with self._stage_ctx("march"):
             with self._stage_ctx("march/props"):
-                object_table = self._compute_props_for_labels(labels, counts, offsets)
+                object_table = self._compute_props_for_labels(labels, counts_own, offsets[own])
             logger.info("Finished calculating object properties")
-            labels = _label.offset_labels(labels, torch.from_numpy(counts))
+            labels = _label.offset_labels(labels, torch.from_numpy(counts_own), int(offsets[self._t0]))
             logger.info(f"Finished assigning {int(counts.sum())} globally unique object IDs")
-            labels, object_table, overlap_list, merge_events = self._split_and_merge_device(
-                _SliceStore(labels), object_table
-            )
+            if self._comm is None:
+                store = _SliceStore(labels)
+            else:
+                store = _ShardStore(labels, self._comm, self._n_time, self._t0, int(counts.sum()))
+            labels, object_table, overlap_list, merge_events = self._split_and_merge_device(store, object_table)
         logger.info("Finished splitting and merging objects")
         with self._stage_ctx("rename"):
             events_ds, N_events = self._cluster_rename(labels, object_table, overlap_list, merge_events)
@@ -1209,100 +1501,101 @@ class tracker:
         iterations per step in which every child linked to several parents
         is partitioned among them (all such children of an iteration in one
         device call), new ids allocated in pair-list order, and the overlap
-        pairs of the touched slices refreshed on the device.
+        pairs of the touched slices refreshed on the device. The store says
+        which steps run here (all of them, but on a mesh).
         """
         T = store.T
         with self._stage_ctx("march/pairs"):
             pair_cache: List[Optional[np.ndarray]] = store.initial_pairs(self)
-
-        merge_times: List[Any] = []
-        merge_child_ids: List[np.ndarray] = []
-        merge_parent_ids: List[np.ndarray] = []
-        merge_areas: List[np.ndarray] = []
-        next_new_id = store.first_new_id(table)
+        st = _March(table, pair_cache, store.first_new_id(table))
         time_values = np.asarray(self.data_bin.coords[self.timecoord].values)
 
         def get_pairs(t: int) -> np.ndarray:
-            if pair_cache[t] is None:
+            if st.pairs[t] is None:
                 with self._stage_ctx("march/pairs"):
-                    pair_cache[t] = self._pairs_dev(store.get_dev(t), store.get_dev(t + 1), next_new_id + 1)
-            return pair_cache[t]
+                    st.pairs[t] = self._pairs_dev(store.get_dev(t), store.get_dev(t + 1), st.next_new_id + 1)
+            return st.pairs[t]
 
         def invalidate(t: int) -> None:
             if 0 <= t - 1 < T - 1:
-                pair_cache[t - 1] = None
+                st.pairs[t - 1] = None
             if 0 <= t < T - 1:
-                pair_cache[t] = None
+                st.pairs[t] = None
 
         def consolidate(back: np.ndarray, t_slice: int) -> None:
             with self._stage_ctx("march/consolidate"):
-                self._consolidate_slice_device(store, table, back, t_slice, invalidate)
+                self._consolidate_slice_device(store, st.table, back, t_slice, invalidate)
 
-        for t in range(T):
-            store.begin_step(t)
-            # -- consolidation of t-1 using t-2 --------------------------
-            if t > 1:
-                back = self._enforce_threshold(get_pairs(t - 2), table)
+        error = None
+        try:
+            for t in store.steps(st):
+                store.begin_step(t)
+                # -- consolidation of t-1 using t-2 --------------------------
+                if t > 1:
+                    back = self._enforce_threshold(get_pairs(t - 2), st.table)
+                    if len(back):
+                        consolidate(back, t - 1)
+                if t == 0:
+                    continue
+
+                # -- per-timestep merge resolution ---------------------------
+                for _ in range(10):
+                    cur = self._enforce_threshold(get_pairs(t - 1), st.table)
+                    if len(cur) == 0:
+                        break
+                    children, child_counts = np.unique(cur[:, 1], return_counts=True)
+                    merging = children[child_counts > 1]
+                    if len(merging) == 0:
+                        break
+
+                    batch: List[Tuple[int, np.ndarray, np.ndarray]] = []
+                    for child_id in merging:
+                        child_id = int(child_id)
+                        rows_idx = np.nonzero(cur[:, 1] == child_id)[0]
+                        rows = cur[rows_idx]
+                        if len(rows) < 2:
+                            continue
+                        parent_ids = rows[:, 0].astype(np.int64)
+                        n_parents = len(parent_ids)
+                        if n_parents > MAX_PARENTS:
+                            raise TrackingError(
+                                "Too many parent objects for tracking",
+                                details=f"Child {child_id} has {n_parents} parents (limit: {MAX_PARENTS})",
+                                suggestions=[
+                                    "Increase overlap_threshold to reduce fragmentation",
+                                    "Apply stronger area filtering",
+                                ],
+                                context={"child_id": child_id, "n_parents": int(n_parents), "limit": MAX_PARENTS},
+                            )
+                        new_ids = np.arange(st.next_new_id, st.next_new_id + n_parents - 1, dtype=np.int64)
+                        st.next_new_id += n_parents - 1
+                        child_ids = np.concatenate([[child_id], new_ids]).astype(np.int64)
+                        cur[rows_idx[1:], 1] = new_ids  # in-place rewiring
+
+                        st.merge_times.append(time_values[t])
+                        st.merge_child_ids.append(child_ids)
+                        st.merge_parent_ids.append(parent_ids)
+                        st.merge_areas.append(rows[:, 2])
+                        batch.append((child_id, parent_ids, child_ids))
+
+                    if batch:
+                        with self._stage_ctx("march/partition"):
+                            self._partition_batch(store, st.table, batch, t)
+                    invalidate(t)
+                else:
+                    logger.warning(f"Resolving mergers at timestep {t} did not converge after 10 iterations")
+
+            # end-of-series consolidation
+            if T >= 2 and store.ends_series:
+                back = self._enforce_threshold(get_pairs(T - 2), st.table)
                 if len(back):
-                    consolidate(back, t - 1)
-            if t == 0:
-                continue
-
-            # -- per-timestep merge resolution ---------------------------
-            for _ in range(10):
-                cur = self._enforce_threshold(get_pairs(t - 1), table)
-                if len(cur) == 0:
-                    break
-                children, child_counts = np.unique(cur[:, 1], return_counts=True)
-                merging = children[child_counts > 1]
-                if len(merging) == 0:
-                    break
-
-                batch: List[Tuple[int, np.ndarray, np.ndarray]] = []
-                for child_id in merging:
-                    child_id = int(child_id)
-                    rows_idx = np.nonzero(cur[:, 1] == child_id)[0]
-                    rows = cur[rows_idx]
-                    if len(rows) < 2:
-                        continue
-                    parent_ids = rows[:, 0].astype(np.int64)
-                    n_parents = len(parent_ids)
-                    if n_parents > MAX_PARENTS:
-                        raise TrackingError(
-                            "Too many parent objects for tracking",
-                            details=f"Child {child_id} has {n_parents} parents (limit: {MAX_PARENTS})",
-                            suggestions=[
-                                "Increase overlap_threshold to reduce fragmentation",
-                                "Apply stronger area filtering",
-                            ],
-                            context={"child_id": child_id, "n_parents": int(n_parents), "limit": MAX_PARENTS},
-                        )
-                    new_ids = np.arange(next_new_id, next_new_id + n_parents - 1, dtype=np.int64)
-                    next_new_id += n_parents - 1
-                    child_ids = np.concatenate([[child_id], new_ids]).astype(np.int64)
-                    cur[rows_idx[1:], 1] = new_ids  # in-place rewiring
-
-                    merge_times.append(time_values[t])
-                    merge_child_ids.append(child_ids)
-                    merge_parent_ids.append(parent_ids)
-                    merge_areas.append(rows[:, 2])
-                    batch.append((child_id, parent_ids, child_ids))
-
-                if batch:
-                    with self._stage_ctx("march/partition"):
-                        self._partition_batch(store, table, batch, t)
-                invalidate(t)
-            else:
-                logger.warning(f"Resolving mergers at timestep {t} did not converge after 10 iterations")
-
-        # end-of-series consolidation
-        if T >= 2:
-            back = self._enforce_threshold(get_pairs(T - 2), table)
-            if len(back):
-                consolidate(back, T - 1)
+                    consolidate(back, T - 1)
+        except Exception as e:  # the store passes it on (on a mesh, to every rank) and raises it
+            error = e
+        store.end_march(st, error)
 
         with self._stage_ctx("march/overlaps"):
-            overlap_list = self._enforce_threshold(_merge_pair_lists(store.final_pairs(self)), table)
+            overlap_list = self._enforce_threshold(_merge_pair_lists(store.final_pairs(self)), st.table)
         labels = store.flush()
 
         if len(overlap_list):
@@ -1314,8 +1607,8 @@ class tracker:
                     "(expected for disjoint objects grouped by the overlap logic)"
                 )
 
-        merge_events = _build_merge_events(merge_times, merge_child_ids, merge_parent_ids, merge_areas)
-        return labels, table, overlap_list[:, :2] if len(overlap_list) else np.empty((0, 2)), merge_events
+        merge_events = _build_merge_events(*st.records())
+        return labels, st.table, overlap_list[:, :2] if len(overlap_list) else np.empty((0, 2)), merge_events
 
     def _partition_batch(self, store: _SliceStore, table: ObjectTable, batch, t: int) -> None:
         """Cut each merging child of slice t among its parents at t-1 (one
@@ -1388,14 +1681,14 @@ class tracker:
         remap to event ids (over the old ids, in place), and the per-time
         event statistics. Returns ``(events_ds, N_events)``."""
         with self._stage_ctx("rename/max"):
-            labels_max = int(labels.max())
+            labels_max = int(self._joined(np.array([int(labels.max())])).max())
         lookup, N, max_id = self._event_lookup(table, overlap_list, labels_max)
         lookup_dev = torch.from_numpy(lookup).to(labels.device)
 
-        T = labels.shape[0]
+        T = self._n_time
         # the (time, ID) table first, from the old ids; then the remap over them
         with self._stage_ctx("rename/gid"):
-            global_id = _props.event_global_id_lookup(labels, lookup_dev, N)
+            global_id = self._joined_dev(_props.event_global_id_lookup(labels, lookup_dev, N))
         with self._stage_ctx("rename/remap"):
             new_field = _label.remap_labels(lookup_dev, labels)
         del labels
@@ -1406,13 +1699,13 @@ class tracker:
         last_idx = T - 1 - torch.argmax(presence.flip(0).byte(), dim=0).cpu().numpy()
 
         with self._stage_ctx("rename/stats"):
-            areas, clat, clon = self._event_stats(new_field, N)
+            areas, clat, clon = (self._joined_dev(x) for x in self._event_stats(new_field, N))
             clat, clon = self._centroid_units(clat, clon)
 
         merges_by_t = _merges_by_time(merge_events, time_vals)
         ledger = self._ledger_block(merges_by_t, lookup, max_id, N, 0, T)
         events_ds = self._events_fieldset(
-            new_field, global_id[:, 1:], areas[:, 1:], torch.stack([clat[:, 1:], clon[:, 1:]], dim=0),
+            self._sharded(new_field), global_id[:, 1:], areas[:, 1:], torch.stack([clat[:, 1:], clon[:, 1:]], dim=0),
             presence[:, 1:], time_vals[first_idx][1:], time_vals[last_idx][1:], ledger[:, 1:], N,
         )
         return events_ds, N

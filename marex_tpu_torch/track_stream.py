@@ -60,7 +60,7 @@ from .io import zarr_lite
 from .logging_config import get_logger, log_timing
 from .ops import label as _label
 from .ops import properties as _props
-from .track import ObjectTable, _merges_by_time, tracker
+from .track import ObjectTable, _merges_by_time, _SliceStore, tracker
 
 logger = get_logger(__name__)
 
@@ -360,7 +360,7 @@ def _filter(tr: tracker, counts_old: np.ndarray, areas_per_slice: List[np.ndarra
     return keep, stats
 
 
-class _WindowStore:
+class _WindowStore(_SliceStore):
     """
     The march's label field as a window on the device (the protocol of
     ``track._SliceStore``). Before step t it holds slices t-2 onwards up to

@@ -122,8 +122,8 @@ def test_tracker_keeps_its_arguments(tmp_path, fields):
     assert (tr.temp_dir, tr.max_iteration, tr.debug, tr.checkpoint, tr.mesh) == (str(tmp_path), 7, 2, "auto", None)
     default = port.tracker(ev, mask, device="cpu", **KW)
     assert (default.temp_dir, default.max_iteration, default.debug, default.checkpoint) == (None, 40, 0, None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port.tracker(ev, mask, device="cpu", mesh=True, **KW)
+    with pytest.raises(port.DeviceError, match="CUDA"):  # a mesh of the run's device, never the CPU in its place
+        port.tracker(ev, mask, device="cuda", mesh=True, **KW)
     assert list(inspect.signature(port.tracker._validate_inputs).parameters) == list(
         inspect.signature(ref.tracker._validate_inputs).parameters
     )

@@ -565,3 +565,59 @@ def test_plot_preparation_on_cuda_matches_cpu():
             assert prep.pull.bytes == host[t].nbytes and isinstance(frame.data, np.ndarray)
             assert np.array_equal(frame.data, np.where(host[t] > 0, host[t], np.nan), equal_nan=True)
             assert np.array_equal(prep.host_frame(field, "time", t).data, host[t], equal_nan=True)
+
+
+NCCL_CHILD = r"""
+import os, sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import marex_tpu_torch as port
+from tests.test_torch_cuda import _drive_sst
+
+port.start_distributed_cluster()  # torchrun's variables: a world of one NCCL rank
+sst = _drive_sst()
+detect = dict(method_anomaly="fixed_baseline", method_extreme="global_extreme", threshold_percentile=95)
+track = dict(R_fill=2, T_fill=2, area_filter_absolute=8, allow_merging=True, nn_partitioning=True,
+             overlap_threshold=0.25, quiet=True)
+runs = []
+for mesh in (None, True):
+    ds = port.preprocess_data(sst, mesh=mesh, quiet=True, **detect)
+    ev, mg = port.tracker(ds["extreme_events"], ds["mask"], mesh=mesh, **track).run(return_merges=True)
+    runs.append((ds, ev, mg))
+(ds1, ev1, mg1), (dsm, evm, mgm) = runs
+assert type(dsm["extreme_events"].data).__name__ == "DTensor" and type(evm["ID_field"].data).__name__ == "DTensor"
+for a, b in ((ds1, dsm), (ev1, evm), (mg1, mgm)):
+    for v in a.data_vars:
+        x, y = a[v].values, b[v].values
+        assert x.dtype == y.dtype and np.array_equal(x, y, equal_nan=x.dtype.kind == "f"), v
+assert ev1.attrs == evm.attrs and ev1.attrs["N_events_final"] > 0
+print("NCCL WORLD OK", ev1.attrs["N_events_final"], ev1.attrs["total_merges"])
+"""
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_world_matches_one_process(tmp_path):
+    """Config 4 at the drive's size on a mesh of one NCCL rank (started with
+    ``torchrun``'s variables, in a child process) against the same run without
+    a mesh: every output bit for bit, the split ones DTensors."""
+    _need_cuda()
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port_no = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port_no)}
+    child = subprocess.Popen([sys.executable, "-c", NCCL_CHILD, repo], cwd=repo, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT)
+    try:
+        out, _ = child.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        pytest.fail("the one-rank NCCL world hung")
+    out = out.decode(errors="replace")
+    assert child.returncode == 0 and "NCCL WORLD OK" in out, out[-4000:]

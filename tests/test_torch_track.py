@@ -216,8 +216,11 @@ def test_unported_tracker_options_name_their_roadmap_item(kw, item, tmp_path):
         assert p.attrs["N_events_final"] == r.attrs["N_events_final"] > 0
         assert_same(r["ID_field"].values, p["ID_field"].values, "ID_field")
         return
-    with pytest.raises(NotImplementedError, match=item):
-        port.tracker(from_reference(ev, "cpu"), from_reference(mask, "cpu"), **{**args, **kw})
+    # item 11 (multi-device) is ported: mesh=True asks for a mesh of the run's
+    # device, and without a card a CUDA run raises rather than running on the
+    # CPU (the mesh runs are held in tests/test_torch_parallel*.py)
+    with pytest.raises(port.DeviceError, match="CUDA"):
+        port.tracker(from_reference(ev, "cpu"), from_reference(mask, "cpu"), **{**args, **kw, "device": "cuda"})
 
 
 def test_tracker_validation_errors_match():
