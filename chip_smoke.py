@@ -73,7 +73,15 @@ Phases, each of which raises (and so exits nonzero) on failure:
    4's in-memory run like the phase-4 slices, its peak device memory within
    twice the budget. Config 1's run is repeated with the two-level event
    labelling forced, its ``ID_field`` bit-identical to the fused route's.
-   Last, config 1 at six years, 2190 x 720 x 1440 (2,270,592,000 cells, past
+   Then config 6, bench's merge-dense stress (``config6_field``: 24 disk
+   pairs that converge, merge and separate every 50 days, made on the card
+   from bench's numpy centres, on a mask of ones) at bench's own shape, 200 x
+   180 x 360, and at 200 x 720 x 1440: ``tracker(R_fill=2, T_fill=0,
+   area_filter_quartile=0.0, nn_partitioning=True, overlap_threshold=0.3)``
+   without and with merging, each after a warm run, with bench's keys (the
+   two walls, the overhead, merges, dispatch counts, both stage walls) and
+   the peaks; at bench's shape both runs are held bit for bit against the
+   CPU's. Last, config 1 at six years, 2190 x 720 x 1440 (2,270,592,000 cells, past
    the fused 3-D labelling's int32 flat indices): detect, then everything
    but the extremes and the mask freed, then the tracker, which must take
    the two-level route (``ccl3d/edges``, ``ccl3d/union``, ``ccl3d/remap``)
@@ -133,11 +141,22 @@ Phases, each of which raises (and so exits nonzero) on failure:
    and the attrs) must equal the run without a mesh: phase 5's for configs 4
    and 1. The split outputs must be DTensors, and each path must have
    launched the kernels it labels on and no other; each run's walls, peak
-   and launches are printed.
+   and launches are printed. Then ``marex_tpu_torch.entry.dryrun_multichip(1)``
+   joins the same world and runs its four drives (a grid run with merges,
+   the shifting baseline with Hobday thresholds, an unstructured mesh, the
+   streamed tracker): its counts must be the CPU's (``DRYRUN_PORT``: the
+   reference's ``DRYRUN_REFERENCE`` but for the grid drive's detrend fit),
+   and it must have launched both the grid and the mesh kernels;
+9. the entry module (``marex_tpu_torch.entry``): ``entry()`` on the card
+   against ``entry(device="cpu")``, labels and event count bit for bit,
+   anomalies within 1e-5; then its fused detect+track step on config 1's
+   SST at 1095 x 720 x 1440 (``year_idx = t // 365``, ``doy_idx = t %
+   365``): its wall, launches and peak.
 
 The line before the last is a JSON object with each kernel's launches on the
 path that runs it (config 4; config 5 for the mesh kernels) and on every path
-(``launches_by_path``, phase 8's mesh runs included), its largest
+(``launches_by_path``: phase 8's mesh runs and dry run, config 6 and the
+entry step included), its largest
 difference from the plain version, and its time, its plain version's, its
 bound and the nearest PyTorch call's on that path's own labels (phase 6);
 the last line is ``{"ok": true, "device": {...}}``.
@@ -149,8 +168,10 @@ import argparse
 import atexit
 import contextlib
 import functools
+import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -203,6 +224,21 @@ TRACK_CONFIG5 = dict(
 MESH_CELLS = 1048576  # an ICON-like cell count; the mesh below has 1,048,352 of them
 MESH_DAYS = 730  # config 5's two years
 BIG = 2**31 - 1
+# config 6, the merge-dense stress (bench.py:860-923): disk pairs that converge,
+# merge and separate every 50 days on a mask of ones, tracked with and without merging
+CONFIG6_TRACK = dict(R_fill=2, T_fill=0, area_filter_quartile=0.0, nn_partitioning=True, overlap_threshold=0.3)
+# the kernels each path labels on
+GRID_KERNELS = ("ccl_step", "pointer_jump")
+MESH_KERNELS = ("active_cells", "graph_step", "graph_jump")
+# the counts that ``__graft_entry__.dryrun_multichip(n)`` prints, the same for n = 1, 2 and 4:
+#   JAX_PLATFORMS=cpu python -c "import __graft_entry__ as g; g.dryrun_multichip(2)"
+DRYRUN_REFERENCE = {"n_events": 34, "total_merges": 18, "shifting+hobday extremes": 4802,
+                    "unstructured n_events": 2, "streamed n_events": 34}
+# the port's (``marex_tpu_torch.entry.dryrun_multichip(2, device="cpu")``): its grid drive's
+# detrended anomalies come from a float64 fit, the reference's from a float32 fit that strays
+# 1.1e-2 on this 64-day series, so 130 of the 32768 cells flag otherwise there; the other
+# drives' counts are the reference's
+DRYRUN_PORT = {**DRYRUN_REFERENCE, "n_events": 37, "total_merges": 17, "streamed n_events": 37}
 
 
 def make_sst(n_years: int, ny: int, nx: int, seed: int, device: str, lat_range=(-89.5, 89.5), lon_range=(0.0, 360.0),
@@ -1748,6 +1784,181 @@ def streamed_paths(mx, refs: dict, kernels: dict, plot_inputs: dict, keep_dir: s
     return launches
 
 
+def kernels_of(path: str) -> tuple:
+    """The kernels a path labels on: none for detect alone (config 7, a
+    detect run), the mesh's on config 5, both sets in the dry run (its grid
+    and mesh drives), the grid's on every other path."""
+    if path == "config 7" or "detect" in path:
+        return ()
+    if path.startswith("config 5"):
+        return MESH_KERNELS
+    if path.startswith("dryrun"):
+        return GRID_KERNELS + MESH_KERNELS
+    return GRID_KERNELS
+
+
+def check_launches(path: str, counts: dict) -> None:
+    """A path launched each kernel it labels on, and no other."""
+    runs = kernels_of(path)
+    for k, n in counts.items():
+        if (k in runs) != (n > 0):
+            raise AssertionError(f"{path}: {k} launched {n} times, and it {'is' if k in runs else 'is not'} "
+                                 f"a kernel of the path: {counts}")
+
+
+def config6_field(ny: int, nx: int, device: str, T: int = 200, n_pairs: int = 24) -> torch.Tensor:
+    """Bench's config 6 field (``bench.py:config6_merge_dense``'s recipe, bit
+    for bit), (T, ny, nx) bool made on ``device``: ``n_pairs`` pairs of disks
+    of radius ``max(min(ny, nx) // 30, 5)``, periodic in x, at centres drawn
+    with numpy from ``default_rng(9)``, which converge, merge and separate
+    every 50 steps."""
+    rng = np.random.default_rng(9)
+    centers = [(int(rng.integers(ny // 6, 5 * ny // 6)), int(rng.integers(0, nx))) for _ in range(n_pairs)]
+    r = max(min(ny, nx) // 30, 5)
+    yy = torch.arange(ny, device=device)[:, None]
+    xx = torch.arange(nx, device=device)[None, :]
+    # a slice depends on t only through t % 50: each of those is made once
+    period = torch.zeros((min(T, 50), ny, nx), dtype=torch.bool, device=device)
+    for p in range(period.shape[0]):
+        sep = int((1.0 - min((p / 50.0) * 2, 1.0)) * 3 * r) + r
+        for cy, cx0 in centers:
+            for s in (-sep, sep):
+                cx = (cx0 + s) % nx
+                dx = torch.minimum((xx - cx).abs(), nx - (xx - cx).abs())
+                period[p] |= (yy - cy) ** 2 + dx**2 <= r * r
+    return period[torch.arange(T, device=device) % 50]
+
+
+def config6_fields(mx, data: torch.Tensor):
+    """``(extreme_events, mask)`` Fields of a config 6 field: bench's
+    coordinates (daily from 2015, lat -60..60, lon 0..360) and a mask of ones."""
+    T, ny, nx = data.shape
+    coords = {"time": pd.date_range("2015-01-01", periods=T, freq="D").to_numpy(), "lat": np.linspace(-60, 60, ny),
+              "lon": np.linspace(0, 360, nx, endpoint=False)}
+    ev = mx.Field(data, ("time", "lat", "lon"), coords, name="extreme_events")
+    mask = mx.Field(torch.ones((ny, nx), dtype=torch.bool, device=data.device), ("lat", "lon"),
+                    {"lat": coords["lat"], "lon": coords["lon"]}, name="mask")
+    return ev, mask
+
+
+def run_config6(mx, ev, mask, merging: bool, device: str):
+    """Bench's timed unit: the tracker built and run, ending in a synchronise;
+    returns (events, merges or None, tracker, wall)."""
+    t0 = time.perf_counter()
+    tr = mx.tracker(ev, mask, allow_merging=merging, device=device, quiet=True, **CONFIG6_TRACK)
+    events, merges = tr.run(return_merges=True) if merging else (tr.run(), None)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return events, merges, tr, time.perf_counter() - t0
+
+
+def config6_paths(mx, kernels: dict, smi: str) -> dict:
+    """Phase 5, config 6 (the merge-dense stress) on the card at bench's own
+    shape, 200 x 180 x 360, and on the grid of the other paths, 200 x 720 x
+    1440, 24 pairs each: the tracker without and with merging, each after a
+    warm run, the launch counts set to 0 just before the two timed runs and
+    read just after. Prints bench's keys (less its TPU-link ones) and each
+    run's peak. At bench's shape both runs are held against the CPU's bit
+    for bit (``ID_field``, the merge records, the attrs; area and centroid
+    within 1e-5). Returns {path: launch counts}."""
+    launches = {}
+    for path, ny, nx in (("config 6", 180, 360), ("config 6 (720 x 1440)", 720, 1440)):
+        t0 = time.perf_counter()
+        data = config6_field(ny, nx, "cuda")
+        torch.cuda.synchronize()
+        print(f"config 6 data: {tuple(data.shape)} made on the card in {time.perf_counter() - t0:.2f} s")
+        ev, mask = config6_fields(mx, data)
+        for merging in (False, True):  # the warm runs
+            run_config6(mx, ev, mask, merging, "cuda")
+        torch.cuda.empty_cache()
+        for fn in kernels.values():
+            fn.launch_count = 0
+        peaks, runs = [], []
+        for merging in (False, True):
+            torch.cuda.reset_peak_memory_stats()
+            runs.append(run_config6(mx, ev, mask, merging, "cuda"))
+            peaks.append(torch.cuda.max_memory_allocated())
+        launches[path] = {k: fn.launch_count for k, fn in kernels.items()}
+        (ev_p, _, tr_p, w_plain), (ev_m, mg_m, tr_m, w_merge) = runs
+        check_event_ids(ev_p, tuple(data.shape))
+        check_merge_outputs(ev_m, mg_m, tuple(data.shape))
+        if int(ev_m.attrs["total_merges"]) <= 0 or tr_m.dispatch_counts.get("partition", 0) <= 0:
+            raise AssertionError(f"{path}: no merge or no partition: {ev_m.attrs}, {tr_m.dispatch_counts}")
+        print(f"{path} {tuple(data.shape)}, {len(mg_m['n_parents'].values)} merge records ({smi}): " + json.dumps({
+            "no_merge_wall_s": w_plain, "merge_wall_s": w_merge, "merge_overhead_x": w_merge / w_plain,
+            "total_merges": int(ev_m.attrs["total_merges"]), "n_events_no_merge": int(ev_p.attrs["N_events_final"]),
+            "n_events_merge": int(ev_m.attrs["N_events_final"]), "dispatch_counts": tr_m.dispatch_counts,
+            "stage_walls_no_merge": tr_p.stage_walls, "stage_walls_merge": tr_m.stage_walls,
+            "peak_bytes_no_merge": peaks[0], "peak_bytes_merge": peaks[1], "launches": launches[path]}))
+        if ny == 180:
+            t0 = time.perf_counter()
+            ev_c, mask_c = config6_fields(mx, data.cpu())
+            cpu_p = run_config6(mx, ev_c, mask_c, False, "cpu")
+            cpu_m = run_config6(mx, ev_c, mask_c, True, "cpu")
+            if not np.array_equal(ev_p["ID_field"].values, cpu_p[0]["ID_field"].values):
+                raise AssertionError(f"{path}: the no-merge ID_field differs between CUDA and CPU")
+            diff = compare_merge_runs(ev_m, mg_m, tr_m, cpu_m[0], cpu_m[1], path)
+            for (g, c), what in (((ev_p, cpu_p[0]), "no-merge"), ((ev_m, cpu_m[0]), "merge")):
+                if dict(g.attrs) != dict(c.attrs):
+                    raise AssertionError(f"{path}: the {what} attrs differ between CUDA and CPU: {g.attrs} vs {c.attrs}")
+            print(f"{path}: bit-identical to the CPU with and without merging (area, centroid max abs/rel "
+                  f"{json.dumps(diff)}); the CPU's runs {cpu_p[3]:.1f} + {cpu_m[3]:.1f} s, "
+                  f"{time.perf_counter() - t0:.1f} s with the copy")
+            del ev_c, mask_c, cpu_p, cpu_m
+        del data, ev, mask, runs, ev_p, ev_m, mg_m, tr_p, tr_m
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---- phase 9: the entry module ----------------------------------------------------
+
+
+def entry_phase(mx, seed: int, kernels: dict, smi: str) -> dict:
+    """Phase 9, ``marex_tpu_torch.entry``: ``entry()`` on the card against
+    ``entry(device="cpu")`` (labels and the event count bit for bit, the
+    anomalies within 1e-5), then its step on config 1's SST at 1095 x 720 x
+    1440 (``year_idx = t // 365``, ``doy_idx = t % 365``, a mask of ones),
+    its launch counts set to 0 just before and read just after (the grid
+    kernels and no other): its wall, launches and peak. Returns {"entry
+    step": launch counts}."""
+    from marex_tpu_torch.entry import _detect_track_step, entry
+
+    fn, args = entry()
+    anom_g, lab_g, n_g = fn(*args)
+    fn_c, args_c = entry(device="cpu")
+    anom_c, lab_c, n_c = fn_c(*args_c)
+    if args[0].device.type != "cuda" or not torch.equal(lab_g.cpu(), lab_c) or n_g != n_c or n_g <= 0:
+        raise AssertionError(f"entry(): the card's labels ({n_g} events) differ from the CPU's ({n_c})")
+    err = float((anom_g.cpu() - anom_c).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"entry(): the card's anomalies are {err} from the CPU's")
+    print(f"entry(): {tuple(lab_g.shape)}, {n_g} events, labels bit-identical to the CPU's, anomalies within {err}")
+
+    sst, _ = make_sst(3, 720, 1440, seed, "cuda")
+    T = sst.shape[0]
+    t = torch.arange(T, device="cuda", dtype=torch.int32)
+    mask = torch.ones(sst.shape[1:], dtype=torch.bool, device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launch_count = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    anom, labels, n = _detect_track_step(sst, t // 365, t % 365, mask)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: f.launch_count for k, f in kernels.items()}
+    check_launches("entry step", counts)
+    peak = torch.cuda.max_memory_allocated()
+    if labels.dtype != torch.int32 or tuple(labels.shape) != tuple(sst.shape) or n <= 0 or int(labels.max()) != n:
+        raise AssertionError(f"entry step: labels {labels.dtype} {tuple(labels.shape)}, max {int(labels.max())}, n {n}")
+    if not bool((torch.isfinite(anom) == torch.isfinite(sst)).all()):
+        raise AssertionError("entry step: non-finite anomalies where the SST is finite")
+    print(f"entry step {tuple(sst.shape)}: {wall:.3f} s, {n} events, {sst.numel() / wall:.4g} gridpoint-days/s; "
+          f"launches {json.dumps(counts)}; peak {peak} bytes ({peak / 2**30:.2f} GiB) ({smi})")
+    return {"entry step": counts}
+
+
 def mesh_filter_input(mx, seed: int):
     """The area filter's input on config 5 at 2 yr x 1,048,352 cells (the
     masked field after fill_spatial and fill_time), through the entry
@@ -2202,6 +2413,11 @@ def digest(x) -> str:
     return f"{str(x.dtype).removeprefix('torch.')}{tuple(x.shape)}:{sums[0]:016x}{sums[1]:016x}"
 
 
+def dryrun_counts(line: str) -> dict:
+    """The counts of a ``dryrun_multichip OK: ...`` line, by name."""
+    return {k: int(v) for k, v in re.findall(r", ([a-z_+ ]+)=(\d+)", line)}
+
+
 def digests(ds, events, merges) -> dict:
     """Digests of a path's detect outputs, events and merge records, and its
     attrs (JSON)."""
@@ -2291,6 +2507,23 @@ def mesh_child(seed: int) -> int:
                                    **track_kwargs(720, merge)), merge, True)
     del sst, field
 
+    # the entry module's dry run, joining this world: its four drives on a mesh of one rank
+    from marex_tpu_torch.entry import dryrun_multichip
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launch_count = 0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        dryrun_multichip(1)
+    torch.cuda.synchronize()
+    line = [ln for ln in printed.getvalue().splitlines() if ln.startswith("dryrun_multichip OK")][-1]
+    out["dryrun (1 rank)"] = dict(line=line, counts=dryrun_counts(line), wall=time.perf_counter() - t0,
+                                  peak=torch.cuda.max_memory_allocated(),
+                                  launches={k: f.launch_count for k, f in kernels.items()})
+
     dist.destroy_process_group()
     print(json.dumps(out))
     return 0
@@ -2325,7 +2558,6 @@ def mesh_world(seed: int, phase5: dict, smi: str) -> dict:
     want = {f"{path} (mesh)": phase5[path] for path, _ in MESH_FULL_PATHS}
     want.update({"config 2 detect (mesh)": runs["config 2 detect"]["digests"],
                  "config 5 (mesh)": runs["config 5"]["digests"]})
-    grid, mesh_kernels = ("ccl_step", "pointer_jump"), ("active_cells", "graph_step", "graph_jump")
     launches = {}
     for name, expected in want.items():
         got = runs[name]
@@ -2333,10 +2565,7 @@ def mesh_world(seed: int, phase5: dict, smi: str) -> dict:
         if bad or set(got["digests"]) != set(expected):
             raise AssertionError(f"phase 8, {name}: differs from the run without a mesh in {bad}")
         counts = got["launches"]
-        runs_on = () if "detect" in name else mesh_kernels if name.startswith("config 5") else grid
-        for k, n in counts.items():
-            if (k in runs_on) != (n > 0):
-                raise AssertionError(f"phase 8, {name}: {k} launched {n} times: {counts}")
+        check_launches(name, counts)
         launches[f"phase 8 {name}"] = counts
         print(f"phase 8, {name}: bit-identical to the run without a mesh ({len(expected)} digests); "
               f"detect {got['detect_s']:.3f} s, track {got['track_s']:.3f} s; peak {got['peak']} bytes "
@@ -2347,6 +2576,14 @@ def mesh_world(seed: int, phase5: dict, smi: str) -> dict:
         got = runs[name]
         print(f"phase 8, {name} without a mesh, in the child: detect {got['detect_s']:.3f} s, "
               f"track {got['track_s']:.3f} s; peak {got['peak']} bytes ({got['peak'] / 2**30:.2f} GiB)")
+    dry = runs["dryrun (1 rank)"]
+    if dry["counts"] != DRYRUN_PORT:
+        raise AssertionError(f"phase 8, dryrun_multichip(1): {dry['counts']}, where the CPU's are {DRYRUN_PORT}")
+    check_launches("dryrun (1 rank)", dry["launches"])
+    launches["dryrun (1 rank)"] = dry["launches"]
+    print(f"phase 8, dryrun_multichip(1) in the one-rank world: {dry['wall']:.3f} s, peak {dry['peak']} bytes "
+          f"({dry['peak'] / 2**30:.2f} GiB); launches {json.dumps(dry['launches'])}; counts as on the CPU, the "
+          f"reference's but for the grid drive's detrend fit ({json.dumps(DRYRUN_REFERENCE)}):\n  {dry['line']}")
     print(f"phase 8: a world of one NCCL rank, {len(want)} mesh runs equal to the runs without a mesh, {wall:.1f} s "
           f"in all, the first mesh run (config 2's detect) with the world's setup ({smi})")
     return launches
@@ -2390,9 +2627,9 @@ def main() -> int:
     for line in _cuda_build.last_build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
-    # the merge path's host union-find (csrc/marex_host.cpp, built by g++)
+    # the merge path's host union-find (marex_tpu_torch/csrc/marex_host.cpp, built by g++)
     if not _native.has_native():
-        raise AssertionError("the host union-find library (csrc/marex_host.cpp) did not build")
+        raise AssertionError("the host union-find library (marex_tpu_torch/csrc/marex_host.cpp) did not build")
     print(f"native: {_native.get_lib()._name}")
 
     # ---- 3. kernels against their plain versions --------------------------
@@ -2531,7 +2768,6 @@ def main() -> int:
     # ---- 5. the paths at full size -----------------------------------------
     kernels = {"ccl_step": ccl_step, "pointer_jump": pointer_jump, "active_cells": active_cells,
                "graph_step": graph_step, "graph_jump": graph_jump}
-    mesh_kernels = ("active_cells", "graph_step", "graph_jump")
     launches, refs = main_paths(mx, 720, 1440, args.seed, kernels, "cuda")
     plot_inputs, phase5_digests = refs.pop("plot"), refs.pop("digests")
     plot_dir = tempfile.mkdtemp(prefix="marex_smoke_plot_")  # config 8's output store, for phase 7
@@ -2540,21 +2776,10 @@ def main() -> int:
     launches.update(streamed_paths(mx, refs, kernels, plot_inputs, plot_dir))
     del refs
     torch.cuda.empty_cache()
+    launches.update(config6_paths(mx, kernels, smi))
     launches[f"config 1 at {LONG_DAYS} days"], long_tr = long_nomerge_path(mx, args.seed, kernels)
-    # the mesh path labels on graph_step and graph_jump and launches no grid
-    # kernel; every gridded tracking path on ccl_step and pointer_jump, and
-    # launches no mesh kernel. Config 7 is detect alone and labels nothing
     for path, counts in launches.items():
-        if path == "config 7":
-            continue
-        grid = ("ccl_step", "pointer_jump")
-        runs, never = (mesh_kernels, grid) if path == "config 5" else (grid, mesh_kernels)
-        for k in runs:
-            if counts[k] <= 0:
-                raise AssertionError(f"{k}, a kernel of {path}, was never launched there: {counts}")
-        for k in never:
-            if counts[k]:
-                raise AssertionError(f"{k}, not a kernel of {path}, was launched there: {counts}")
+        check_launches(path, counts)
     torch.cuda.empty_cache()
 
     # ---- 6. the kernels on the paths' own labels -----------------------------
@@ -2585,6 +2810,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches.update(mesh_world(args.seed, phase5_digests, smi))
 
+    # ---- 9. the entry module --------------------------------------------------------
+    torch.cuda.empty_cache()
+    launches.update(entry_phase(mx, args.seed, kernels, smi))
+
     # each kernel's launches on the path that runs it: the merge path, and for the mesh kernels config 5
     source = {"ccl_step": "min_stencil.cu", "pointer_jump": "min_stencil.cu", "active_cells": "graph_step.cu",
               "graph_step": "graph_step.cu", "graph_jump": "graph_step.cu"}
@@ -2598,7 +2827,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"marex_tpu_torch/csrc/{source[k]}",
             "replaces": replaces[k],
-            "launches": launches["config 5" if k in mesh_kernels else "merge path (config 4)"][k],
+            "launches": launches["config 5" if k in MESH_KERNELS else "merge path (config 4)"][k],
             "launches_by_path": {path: counts[k] for path, counts in launches.items()},
             "max_abs_err": err[k],
             **label_times[k],

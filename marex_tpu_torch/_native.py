@@ -1,14 +1,14 @@
 """
-Host routines from the repository's C++ runtime: the union-find of event
-clustering and the LZ4 block decoder of blosc-compressed zarr chunks.
+Host routines in C++: the union-find of event clustering and the LZ4 block
+decoder of blosc-compressed zarr chunks.
 
-``csrc/marex_host.cpp`` (shared with ``marex_tpu``, unchanged) is compiled
-with ``g++`` at first use into ``_build/`` (named by a hash of the source and
-flags, so an edited source is rebuilt) and loaded with ``ctypes``. The port
-needs its own loader because importing anything of ``marex_tpu`` imports
-JAX. Two entry points are bound, ``marex_union_find`` and
-``marex_lz4_decompress``: the merge march's other host work is array code on
-the tracker's device.
+The package's own ``csrc/marex_host.cpp`` (the two routines of the
+repository's ``csrc/marex_host.cpp`` that the port calls, so that an
+installed port carries its source) is compiled with ``g++`` at first use into
+``_build/`` (named by a hash of the source and flags, so an edited source is
+rebuilt) and loaded with ``ctypes``. Its two entry points are
+``marex_union_find`` and ``marex_lz4_decompress``: the merge march's other
+host work is array code on the tracker's device.
 
 :func:`union_find_plain` and :func:`lz4_decompress_plain` are the Python
 versions (``marex_tpu/_native.py``'s fallbacks). The union-finds number
@@ -33,7 +33,7 @@ from .logging_config import get_logger
 
 logger = get_logger(__name__)
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "marex_host.cpp"
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "marex_host.cpp"
 _BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # no -march=native: a library built on one host must load on another
 _GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")

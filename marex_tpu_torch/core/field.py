@@ -914,6 +914,8 @@ class FieldSet:
         return key in self.data_vars
 
     def __getattr__(self, key: str) -> Field:
+        if "data_vars" not in self.__dict__:  # not set up yet, as while unpickling
+            raise AttributeError(key)
         try:
             return self[key]
         except KeyError as e:

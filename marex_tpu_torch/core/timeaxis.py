@@ -101,3 +101,18 @@ def doy_window_indices(window_days: int) -> np.ndarray:
     base = np.arange(366)[:, None]
     offsets = np.arange(-half, half + 1)[None, :]
     return ((base + offsets) % 366).astype(np.int32)
+
+
+def add_decimal_year_coord(times: np.ndarray) -> np.ndarray:
+    """The decimal year of each time (float64), as ``add_decimal_year``
+    computes it, without a Field."""
+    return decompose_time(times).decimal_year
+
+
+def infer_time_resolution_days(times: np.ndarray) -> float:
+    """The median spacing of the time axis in days (1.0 for fewer than two
+    times)."""
+    t = np.asarray(times).astype("datetime64[s]").astype("int64")
+    if len(t) < 2:
+        return 1.0
+    return float(np.median(np.diff(t)) / 86400.0)

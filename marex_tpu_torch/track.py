@@ -820,18 +820,47 @@ class tracker:
         merging runs only (``allow_merging=True``). Returns the events
         FieldSet backed by the store, or ``(events, merges)`` with
         ``return_merges``.
+
+        The streamed tracker runs in one process, whatever the mesh, as
+        ``marex_tpu``'s does. With a mesh, every rank calls this: the mesh's
+        first rank runs the tracker on its own device (a DTensor input
+        gathered whole first, by every rank) and alone writes ``out_path``,
+        while the others wait, as long as the process group's timeout
+        allows; an error there is raised on every rank. Every rank then
+        returns the same events, backed by the same store, so ``out_path``
+        must be a directory that every rank can read.
         """
         from .track_stream import run_tracking_streamed
 
-        if self.mesh is not None:
-            raise ConfigurationError(
-                "run_streamed takes no mesh",
-                details="The streamed tracker runs in one process, as in marex_tpu",
-                suggestions=["Call run() on the mesh, or build the tracker without mesh= for run_streamed()"],
+        def run():
+            return run_tracking_streamed(
+                self, out_path, memory_budget_mb=memory_budget_mb, block_T=block_T, return_merges=return_merges
             )
-        return run_tracking_streamed(
-            self, out_path, memory_budget_mb=memory_budget_mb, block_T=block_T, return_merges=return_merges
-        )
+
+        if self.mesh is None:
+            return run()
+        from .parallel.comm import ShardComm
+
+        comm = self._comm or ShardComm(self.mesh)
+        data = gathered(self.data_bin.data) if is_dtensor(self.data_bin.data) else self.data_bin.data
+        result = None
+        with comm.guard():
+            if comm.index == 0:
+                with self._in_one_process(data):
+                    result = run()
+        return comm.broadcast(result, 0)
+
+    @contextmanager
+    def _in_one_process(self, data: Any):
+        """The tracker as one process's, on ``data`` (the whole field), while
+        the block runs: no mesh, no slab."""
+        saved = self.mesh, self._comm, self._t0, self.data_bin
+        self.mesh, self._comm, self._t0 = None, None, 0
+        self.data_bin = self.data_bin._replace(data=data)
+        try:
+            yield
+        finally:
+            self.mesh, self._comm, self._t0, self.data_bin = saved
 
     @contextmanager
     def _stage_ctx(self, name: str):

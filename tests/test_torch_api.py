@@ -2,7 +2,8 @@
 ``marex_tpu.__all__``, its lazy names and its ``helper`` module asked of the
 port, with a written reason for each one absent; then on the CPU the
 ``helper`` functions, the error helpers' messages and classes, the
-dependency registry and the logging switches against the reference's."""
+dependency registry, the logging switches and the time-axis helpers against
+the reference's."""
 
 import ast
 import inspect
@@ -10,6 +11,7 @@ import re
 import textwrap
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -257,3 +259,28 @@ def test_doy_window_indices_match(window):
     r, p = ref_windows(window), doy_window_indices(window)
     assert p.dtype == r.dtype and p.shape == (366, window)
     np.testing.assert_array_equal(p, r)
+
+
+def _time_axis(kind: str) -> np.ndarray:
+    if kind == "daily":  # across a leap day and a year's end
+        return pd.date_range("1999-12-20", "2001-01-10", freq="D").to_numpy()
+    if kind == "6-hourly":
+        return pd.date_range("2000-02-27", periods=24, freq="6h").to_numpy()
+    return np.array(["2003-07-01T12:00"], dtype="datetime64[ns]")
+
+
+@pytest.mark.parametrize("kind", ["daily", "6-hourly", "one sample"])
+def test_time_axis_helpers_match(kind):
+    """``add_decimal_year_coord`` and ``infer_time_resolution_days``, which
+    ``marex_tpu.core.timeaxis`` has and ``core`` does not export, on a
+    daily, a 6-hourly and a one-sample axis."""
+    from marex_tpu.core import timeaxis as ref_timeaxis
+    from marex_tpu_torch.core import timeaxis
+
+    times = _time_axis(kind)
+    got, want = timeaxis.add_decimal_year_coord(times), ref_timeaxis.add_decimal_year_coord(times)
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+    res = timeaxis.infer_time_resolution_days(times)
+    assert type(res) is float and res == ref_timeaxis.infer_time_resolution_days(times)
+    assert res == {"daily": 1.0, "6-hourly": 0.25, "one sample": 1.0}[kind]

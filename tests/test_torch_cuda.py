@@ -1,7 +1,8 @@
 """The port's CUDA kernels, its config-1 slice, its merge tracking, its mesh
 tracking, its regional mode and its streamed paths on the card: each kernel
 against its plain PyTorch version, each path on CUDA against the same path
-on the CPU, and streamed detect and tracking against their in-memory runs.
+on the CPU, streamed detect and tracking against their in-memory runs (and
+on a one-rank NCCL mesh), and the entry module against the CPU.
 Every test needs a CUDA device (and ``nvcc`` to build the kernels) and skips
 without one.
 
@@ -621,3 +622,80 @@ def test_one_rank_nccl_world_matches_one_process(tmp_path):
         pytest.fail("the one-rank NCCL world hung")
     out = out.decode(errors="replace")
     assert child.returncode == 0 and "NCCL WORLD OK" in out, out[-4000:]
+
+
+@pytest.mark.cuda
+def test_entry_on_cuda_matches_cpu():
+    """``marex_tpu_torch.entry``: ``entry()``'s tensors on the card, and its
+    step's labels and event count bit for bit the CPU's, the anomalies within
+    1e-5."""
+    _need_cuda()
+    from marex_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert all(a.device.type == "cuda" for a in args)
+    anom, lab, n = fn(*args)
+    fn_c, args_c = entry(device="cpu")
+    anom_c, lab_c, n_c = fn_c(*args_c)
+    assert n == n_c > 0 and torch.equal(lab.cpu(), lab_c)
+    assert float((anom.cpu() - anom_c).abs().max()) <= 1e-5
+
+
+STREAMED_NCCL_CHILD = r"""
+import os, sys, tempfile
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import marex_tpu_torch as port
+from marex_tpu_torch.io import zarr_lite
+from tests.torch_parity import merge_dense_field
+
+port.start_distributed_cluster()  # torchrun's variables: a world of one NCCL rank
+data = merge_dense_field()
+T, H, W = data.shape
+coords = {"time": np.arange(T).astype("datetime64[D]").astype("datetime64[ns]"), "lat": np.linspace(-60, 60, H),
+          "lon": np.linspace(0, 360, W, endpoint=False)}
+mask = port.Field(np.ones((H, W), bool), ("lat", "lon"), {"lat": coords["lat"], "lon": coords["lon"]}, name="mask")
+work = tempfile.mkdtemp()
+zarr_lite.to_zarr(port.Field(data, ("time", "lat", "lon"), coords, name="extreme_events"), f"{work}/src.zarr",
+                  chunks={"time": 10})
+track = dict(R_fill=2, T_fill=0, area_filter_quartile=0.0, allow_merging=True, overlap_threshold=0.3, quiet=True)
+runs = []
+for mesh in (None, True):
+    lazy = zarr_lite.open_zarr(f"{work}/src.zarr", lazy=True)["extreme_events"]
+    runs.append(port.tracker(lazy, mask, mesh=mesh, **track).run_streamed(f"{work}/out{mesh}.zarr", block_T=13,
+                                                                          return_merges=True))
+for a, b in zip(*runs):
+    for v in a.data_vars:
+        x, y = np.asarray(a[v].values), np.asarray(b[v].values)
+        assert x.dtype == y.dtype and np.array_equal(x, y, equal_nan=x.dtype.kind == "f"), v
+assert runs[0][0].attrs == runs[1][0].attrs and runs[0][0].attrs["total_merges"] > 0
+print("STREAMED MESH OK", runs[0][0].attrs["N_events_final"], runs[0][0].attrs["total_merges"])
+"""
+
+
+@pytest.mark.cuda
+def test_streamed_tracking_on_a_one_rank_nccl_mesh(tmp_path):
+    """``run_streamed`` on a mesh of one NCCL rank (in a child process started
+    with ``torchrun``'s variables) against the same run without a mesh: every
+    output and attr bit for bit."""
+    _need_cuda()
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port_no = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(port_no), "TMPDIR": str(tmp_path)}
+    child = subprocess.Popen([sys.executable, "-c", STREAMED_NCCL_CHILD, repo], cwd=repo, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        out, _ = child.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        pytest.fail("the one-rank NCCL world hung")
+    out = out.decode(errors="replace")
+    assert child.returncode == 0 and "STREAMED MESH OK" in out, out[-4000:]

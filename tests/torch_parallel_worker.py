@@ -131,7 +131,7 @@ def _mesh_fields(marEx, inp, prefix):
     return sc, nb, ca
 
 
-def run_scenario(marEx, name: str, inp, mesh):
+def run_scenario(marEx, name: str, inp, mesh, outdir: str):
     """``{"single": (FieldSet, ...), "mesh": (FieldSet, ...)}`` of one scenario."""
     from marex_tpu_torch.parallel import use_mesh
 
@@ -169,13 +169,58 @@ def run_scenario(marEx, name: str, inp, mesh):
             mk = marEx.Field(inp[f"{prefix}_mask"], ("ncells",), sc, name="mask")
             tr = marEx.tracker(ev, mk, neighbours=nb, cell_areas=ca, mesh=m, **TRACK_MESH, **GRID_KW)
             res = (ds.drop_vars(["neighbours", "cell_areas"]),) + tr.run(return_merges=True)
+        elif name in ("streamed", "streamed_dtensor"):
+            res = _streamed(marEx, inp, m, outdir, dtensor=name.endswith("dtensor"))
         else:
             raise ValueError(f"unknown scenario {name}")
         out[key] = res
     return out
 
 
-def _errors(marEx, mesh):
+#: store writes (``RegionWriter.write`` calls) this rank made, by run
+STREAM_WRITES: dict = {}
+
+
+def _streamed(marEx, inp, mesh, outdir: str, dtensor: bool):
+    """``run_streamed`` of the merging disks (in blocks of 5 slices) into a
+    store of the run's own: from a lazy store that the first rank writes, or
+    (``dtensor``) from memory, on the mesh a DTensor split over time; counts
+    this rank's store writes in ``STREAM_WRITES``."""
+    import torch.distributed as dist
+
+    from marex_tpu_torch.io import zarr_lite
+    from marex_tpu_torch.parallel import shard_put, track_sharding
+
+    data = inp["disks"]
+    key = "single" if mesh is None else "mesh"
+    name = f"{'streamed_dtensor' if dtensor else 'streamed'}_{key}"
+    ev = _grid_field(marEx, data, "extreme_events")
+    if dtensor:
+        if mesh is not None:
+            ev = ev._replace(data=shard_put(data, track_sharding(mesh)))
+    else:
+        src = os.path.join(outdir, f"{name}_src.zarr")
+        if dist.get_rank() == 0:
+            zarr_lite.to_zarr(ev, src, chunks={"time": 6})
+        dist.barrier()
+        ev = zarr_lite.open_zarr(src, lazy=True)["extreme_events"]
+    out = os.path.join(outdir, f"{name}.{dist.get_rank()}.zarr" if mesh is None else f"{name}.zarr")
+    write = zarr_lite.RegionWriter.write
+    STREAM_WRITES[name] = 0
+
+    def counted(self, *args, **kwargs):
+        STREAM_WRITES[name] += 1
+        return write(self, *args, **kwargs)
+
+    zarr_lite.RegionWriter.write = counted
+    try:
+        tr = marEx.tracker(ev, _mask(marEx, *data.shape[1:]), mesh=mesh, **TRACK_REALMERGE, **GRID_KW)
+        return tr.run_streamed(out, block_T=5, return_merges=True)
+    finally:
+        zarr_lite.RegionWriter.write = write
+
+
+def _errors(marEx, mesh, outdir: str):
     """Each error scenario's (class, message) in one process and on the mesh."""
     out = {}
     for name, data, kw in (
@@ -190,6 +235,17 @@ def _errors(marEx, mesh):
                 out[f"{name}/{key}"] = None
             except Exception as e:  # recorded for the test to compare
                 out[f"{name}/{key}"] = [type(e).__name__, str(e).splitlines()[0]]
+    # met on the first rank alone: the streamed tracker runs there
+    data = merging_disks()
+    for key, m in (("single", None), ("mesh", mesh)):
+        ev = _grid_field(marEx, data, "extreme_events")
+        tr = marEx.tracker(ev, _mask(marEx, *data.shape[1:]), mesh=m, **{**TRACK_REALMERGE, "allow_merging": False},
+                           **GRID_KW)
+        try:
+            tr.run_streamed(os.path.join(outdir, f"never_{key}.zarr"))
+            out[f"streamed_nomerge/{key}"] = None
+        except Exception as e:  # recorded for the test to compare
+            out[f"streamed_nomerge/{key}"] = [type(e).__name__, str(e).splitlines()[0]]
     return out
 
 
@@ -214,9 +270,9 @@ def main(argv):
     inp = dict(np.load(inputs, allow_pickle=False))
     for name in scenarios:
         if name == "errors":
-            record["errors"] = _errors(marEx, mesh)
+            record["errors"] = _errors(marEx, mesh, outdir)
             continue
-        runs = run_scenario(marEx, name, inp, mesh)
+        runs = run_scenario(marEx, name, inp, mesh, outdir)
         arrays, attrs = {}, {}
         for key, res in runs.items():
             if key == "single" and rank != 0:
@@ -229,6 +285,7 @@ def main(argv):
         np.savez(os.path.join(outdir, f"{name}.{rank}.npz"), **arrays)
         with open(os.path.join(outdir, f"{name}.{rank}.json"), "w") as f:
             json.dump(attrs, f, default=str)
+    record["stream_writes"] = STREAM_WRITES
     with open(os.path.join(outdir, f"runtime.{rank}.json"), "w") as f:
         json.dump(record, f)
     dist.destroy_process_group()
