@@ -1608,7 +1608,6 @@ def report_path(path: str, n_in: int, events, tr, t_det: float, t_trk: float, de
     print(f"  ccl iterations: {json.dumps(tr.ccl_iterations)}")
     print(f"  launch counts: {json.dumps(counts)}")
     print(f"  max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB); after detect {detect_peak / 2**30:.2f} GiB")
-    print(f"  stage_peak_bytes (running max): {json.dumps(tr.stage_peak_bytes)}")
 
 
 def mesh_and_regional_paths(mx, seed: int, kernels: dict, plot_inputs: dict) -> dict:
@@ -1774,7 +1773,6 @@ def streamed_paths(mx, refs: dict, kernels: dict, plot_inputs: dict, keep_dir: s
               f"({peak / 2**30:.2f} GiB, budget {budget_mb} MiB; in memory {c4['peak'] / 2**30:.2f} GiB); input store "
               f"written in {t_store:.1f} s, outputs checked in {t_check:.1f} s")
         print(f"  stage_walls: {json.dumps(tr.stage_walls)}")
-        print(f"  stage_peak_bytes (running max): {json.dumps(tr.stage_peak_bytes)}")
         print(f"  dispatch_counts: {json.dumps(tr.dispatch_counts)}; ccl iterations {json.dumps(tr.ccl_iterations)}; "
               f"launch counts {json.dumps(launches['config 8'])}")
         del events, merges

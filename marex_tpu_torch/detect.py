@@ -33,6 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import tracing
 from .core.field import Coord, Field, FieldSet, as_field, is_dtensor, on_device
 from .core.timeaxis import TimeIndexInfo, decompose_time, gather_from_year_doy, scatter_to_year_doy
 from .exceptions import ConfigurationError, create_data_validation_error
@@ -436,16 +437,17 @@ def preprocess_data(
         cell_areas=cell_areas, donate_input=donate_input, device=device,
     )
     mesh = mesh_of(mesh, device)
-    if mesh is None:
-        return _preprocess(da, None, **kw)
-    global _BAND
-    band = _Band(mesh, da, dimensions)
-    _BAND = band
-    try:
-        with band.comm.guard():
-            return _preprocess(band.local(da), band, **kw)
-    finally:
-        _BAND = None
+    with tracing.span("detect"):
+        if mesh is None:
+            return _preprocess(da, None, **kw)
+        global _BAND
+        band = _Band(mesh, da, dimensions)
+        _BAND = band
+        try:
+            with band.comm.guard():
+                return _preprocess(band.local(da), band, **kw)
+        finally:
+            _BAND = None
 
 
 def _preprocess(da: Field, band: Optional[_Band], method_anomaly, method_extreme, threshold_percentile,
@@ -461,7 +463,8 @@ def _preprocess(da: Field, band: Optional[_Band], method_anomaly, method_extreme
     _reject_reference_period(method_anomaly, reference_period)
     _validate_data_values(da.data.movedim(da.dims.index(dimensions["time"]), 0))
 
-    with log_timing(logger, f"Anomaly computation using {method_anomaly} method", log_memory=True):
+    with log_timing(logger, f"Anomaly computation using {method_anomaly} method", log_memory=True,
+                    span="detect/anomaly"):
         ds = compute_normalised_anomaly(
             da,
             method_anomaly,
@@ -480,7 +483,8 @@ def _preprocess(da: Field, band: Optional[_Band], method_anomaly, method_extreme
     if method_anomaly == "shifting_baseline":
         ds = _trim_baseline_years(ds, dimensions["time"], coordinates["time"], window_year_baseline)
 
-    with log_timing(logger, f"Extreme event identification using {method_extreme} method", log_memory=True):
+    with log_timing(logger, f"Extreme event identification using {method_extreme} method", log_memory=True,
+                    span="detect/extremes"):
         extremes, thresholds = identify_extremes(
             ds["dat_anomaly"],
             method_extreme,

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from . import detect as _detect
+from . import tracing
 from .core.field import Coord, Field, FieldSet
 from .core.timeaxis import decompose_time
 from .exceptions import ConfigurationError, create_data_validation_error
@@ -352,7 +353,7 @@ def preprocess_data_streamed(
             r1 = min(r0 + row_block, ny)
             n_rows = r1 - r0
             starts_s = (r0, 0) if is_gridded else (r0,)
-            with log_timing(logger, f"Streamed tile {ti + 1}/{n_tiles} rows [{r0}:{r1})"):
+            with log_timing(logger, f"Streamed tile {ti + 1}/{n_tiles} rows [{r0}:{r1})", span="detect/tile"):
                 t0 = time.perf_counter()
                 tile, land = source.get(ti)
                 walls["wait_read"] += time.perf_counter() - t0
@@ -427,7 +428,8 @@ def preprocess_data_streamed(
                         detect_logger.setLevel(prev_level)
                 for w in caught:
                     key = (w.category, str(w.message))
-                    if key not in seen_warnings:
+                    # every synchronisation the tracer counts (tracing.collect on CUDA) passes on to it
+                    if key not in seen_warnings or key[1].startswith(tracing.SYNC_WARNING):
                         seen_warnings.add(key)
                         warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
                 _sync()

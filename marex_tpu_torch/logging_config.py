@@ -226,22 +226,32 @@ def log_timing(
     level: int = logging.INFO,
     log_memory: bool = False,
     show_progress: bool = False,
+    span: Optional[str] = None,
 ) -> Iterator[None]:
     """
     Context manager timing a pipeline stage (optionally with memory deltas).
 
     Equivalent role to the reference's ``log_timing``
-    (``marEx/logging_config.py:287-340``).
+    (``marEx/logging_config.py:287-340``). The stage is a ``tracing`` span
+    named ``span`` (default: ``label``): with tracing on (inside
+    ``tracing.collect()``), it ends in a synchronise on CUDA and the logged
+    time holds the stage's device work; with tracing off, the line says that
+    the time is the host's (the work enqueued, not done).
     """
+    from . import tracing
+
     start = time.perf_counter()
     mem_before = _host_memory_mb() if log_memory else None
     if show_progress and not is_quiet_mode():
         logger.log(level, f"Starting: {label}")
     try:
-        yield
+        with tracing.span(span or label):
+            yield
     finally:
         elapsed = time.perf_counter() - start
         msg = f"Completed: {label} in {elapsed:.2f}s"
+        if not tracing.enabled():
+            msg += " (host time: the device may still be working)"
         if log_memory:
             mem_after = _host_memory_mb()
             if mem_before is not None and mem_after is not None:
@@ -293,20 +303,27 @@ log_array_info = log_dask_info
 
 
 @contextmanager
-def profile_trace(log_dir: str) -> Iterator[None]:
+def profile_trace(log_dir: str):
     """
     ``torch.profiler`` trace of the enclosed block, written as a Chrome trace
     (viewable in Perfetto) to ``<log_dir>/trace.json``. CUDA activity is
-    recorded when this process has initialised CUDA.
+    recorded when this process has initialised CUDA. The block runs under
+    ``tracing.collect()``, so the program's spans are ranges of the trace;
+    it yields the tracing record. On CUDA the block's peak of allocated
+    memory is the record's ``peak_bytes``: ``torch.cuda.max_memory_allocated``
+    after the block counts only from its last span's entry.
     """
     import torch
+
+    from . import tracing
 
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_initialized():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     with torch.profiler.profile(activities=activities) as prof:
-        yield
+        with tracing.collect() as record:
+            yield record
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 

@@ -16,6 +16,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.timeaxis import TimeIndexInfo, gather_from_year_doy, scatter_to_year_doy
 from . import climatology as _clim
 from . import detrend as _detrend
@@ -86,7 +87,8 @@ def fixed_baseline_anomaly(
     Anomaly from a fixed daily climatology, ``data - clim[doy]`` (float32).
     ``out`` receives the result; passing ``data`` itself computes in place.
     """
-    clim = _doy_nanmean_direct(data, doy_idx, clim_time_mask)
+    with tracing.span("detect/anomaly/climatology"):
+        clim = _doy_nanmean_direct(data, doy_idx, clim_time_mask)
     return doy_op(torch.sub, data, clim, doy_idx, torch.empty_like(data) if out is None else out)
 
 
@@ -111,11 +113,12 @@ def shifting_baseline_anomaly(
     sc = max(1, _SHIFT_CHUNK_CELLS // (366 * max(tinfo.n_years, 1)))
     for s0 in range(0, S, sc):
         d = data[:, s0 : s0 + sc]
-        smoothed = _clim.centered_rolling_mean_time(d, smooth_days_baseline)
-        ymd = scatter_to_year_doy(smoothed, tinfo)
-        del smoothed
-        clim = _clim.rolling_climatology_ymd(ymd, window_year_baseline)
-        del ymd
+        with tracing.span("detect/anomaly/climatology"):
+            smoothed = _clim.centered_rolling_mean_time(d, smooth_days_baseline)
+            ymd = scatter_to_year_doy(smoothed, tinfo)
+            del smoothed
+            clim = _clim.rolling_climatology_ymd(ymd, window_year_baseline)
+            del ymd
         torch.sub(d, gather_from_year_doy(clim, tinfo), out=out[:, s0 : s0 + sc])
     return out
 
@@ -189,26 +192,31 @@ def hobday_program(
     step) and clamps at ``lower_bound``; ``pre_min``/``pre_max`` are the
     threshold range before the clamp, for the caller's warnings.
     """
-    if exact:
-        thr = _quant.hobday_thresholds_exact(scatter_to_year_doy(anomalies, tinfo), q, window_days)
-        pre_min, pre_max = _nan_range(thr)
-    else:
-        # digitize then scatter: the sentinel fill is what a NaN bins to
-        bins = scatter_to_year_doy(_quant.digitize_anomalies(anomalies, precision, nbins), tinfo, fill=nbins)
-        thr = _quant.hobday_thresholds_approx(
-            bins, q, window_days, nbins, bin_centers, window_spatial=window_spatial, grid_shape=grid_shape,
-            wrap_lon=wrap_lon,
-        )
-        del bins
-        lo, hi = halo_rows
-        if lo or hi:
-            H, W = grid_shape
-            thr = thr.view(-1, H, W)[:, lo : H - hi].reshape(thr.shape[0], -1)
-            anomalies = anomalies.view(-1, H, W)[:, lo : H - hi].reshape(anomalies.shape[0], -1)
-        thr.masked_fill_(~torch.isfinite(anomalies[0]), torch.nan)
-        thr, pre_min, pre_max = _clamp_below(thr, lower_bound)
-    extremes = torch.empty(anomalies.shape, dtype=torch.bool, device=anomalies.device)
-    doy_op(torch.ge, anomalies, thr, tinfo.dayofyear - 1, extremes)
+    with tracing.span("detect/threshold"):
+        if exact:
+            with tracing.span("detect/threshold/quantile"):
+                thr = _quant.hobday_thresholds_exact(scatter_to_year_doy(anomalies, tinfo), q, window_days)
+            pre_min, pre_max = _nan_range(thr)
+        else:
+            # digitize then scatter: the sentinel fill is what a NaN bins to
+            with tracing.span("detect/threshold/digitize"):
+                bins = scatter_to_year_doy(_quant.digitize_anomalies(anomalies, precision, nbins), tinfo, fill=nbins)
+            with tracing.span("detect/threshold/quantile"):
+                thr = _quant.hobday_thresholds_approx(
+                    bins, q, window_days, nbins, bin_centers, window_spatial=window_spatial, grid_shape=grid_shape,
+                    wrap_lon=wrap_lon,
+                )
+            del bins
+            lo, hi = halo_rows
+            if lo or hi:
+                H, W = grid_shape
+                thr = thr.view(-1, H, W)[:, lo : H - hi].reshape(thr.shape[0], -1)
+                anomalies = anomalies.view(-1, H, W)[:, lo : H - hi].reshape(anomalies.shape[0], -1)
+            thr.masked_fill_(~torch.isfinite(anomalies[0]), torch.nan)
+            thr, pre_min, pre_max = _clamp_below(thr, lower_bound)
+    with tracing.span("detect/compare"):
+        extremes = torch.empty(anomalies.shape, dtype=torch.bool, device=anomalies.device)
+        doy_op(torch.ge, anomalies, thr, tinfo.dayofyear - 1, extremes)
     return extremes, thr, pre_min, pre_max
 
 
@@ -228,13 +236,19 @@ def global_extreme_program(
     when no threshold is finite) for the caller's range warnings. The exact
     path neither masks nor clamps.
     """
-    if exact:
-        thr = _quant.exact_quantile_time(anomalies, q)
-        pre_min, pre_max = _nan_range(thr)
-        return anomalies >= thr, thr, pre_min, pre_max
-    bins = _quant.digitize_anomalies(anomalies, precision, nbins)
-    thr = _quant.global_thresholds_approx(bins, q, nbins, bin_centers)
-    del bins
-    thr = torch.where(torch.isnan(anomalies).any(dim=0), torch.nan, thr)
-    thr, pre_min, pre_max = _clamp_below(thr, lower_bound)
-    return anomalies >= thr, thr, pre_min, pre_max
+    with tracing.span("detect/threshold"):
+        if exact:
+            with tracing.span("detect/threshold/quantile"):
+                thr = _quant.exact_quantile_time(anomalies, q)
+            pre_min, pre_max = _nan_range(thr)
+        else:
+            with tracing.span("detect/threshold/digitize"):
+                bins = _quant.digitize_anomalies(anomalies, precision, nbins)
+            with tracing.span("detect/threshold/quantile"):
+                thr = _quant.global_thresholds_approx(bins, q, nbins, bin_centers)
+            del bins
+            thr = torch.where(torch.isnan(anomalies).any(dim=0), torch.nan, thr)
+            thr, pre_min, pre_max = _clamp_below(thr, lower_bound)
+    with tracing.span("detect/compare"):
+        extremes = anomalies >= thr
+    return extremes, thr, pre_min, pre_max

@@ -50,7 +50,6 @@ import hashlib
 import logging
 import os
 import tempfile
-import time
 import weakref
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -58,6 +57,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import tracing
 from .core.field import Coord, Field, FieldSet, as_field, gathered, is_dtensor, on_device
 from .detect import mesh_of
 from .exceptions import ConfigurationError, TrackingError, create_coordinate_error, create_data_validation_error
@@ -490,14 +490,17 @@ class tracker:
             device = self.data_bin.data.device
         self.mask_dev = on_device(self.mask.data, device).to(device)
         self.device = self.mask_dev.device
+        #: the tracker's view of its stage spans (``tracing``): the seconds of
+        #: each stage, added up over its calls
         self.stage_walls: Dict[str, float] = {}
-        #: torch.cuda.max_memory_allocated() read at the end of each stage that
-        #: ran on CUDA: a running maximum, so the first stage to show the final
-        #: value is the one that set the peak
+        #: each stage's own peak of allocated device memory in bytes (its
+        #: largest over its calls), read inside ``tracing.collect()`` on CUDA
         self.stage_peak_bytes: Dict[str, int] = {}
+        #: labelling iterations by stage (also the counters ``ccl/iterations/<stage>``)
         self.ccl_iterations: Dict[str, int] = {}
         #: device calls of the merge march by kind: "pairs" (one slice pair's
-        #: overlaps refreshed), "consolidate", "partition"
+        #: overlaps refreshed), "consolidate", "partition" (also the counters
+        #: ``march/dispatch/<kind>``)
         self.dispatch_counts: Dict[str, int] = {}
         # the area filter's per-slice roots, kept for the merge path's labels
         self._label_reuse = None
@@ -780,23 +783,24 @@ class tracker:
         FieldSet, or ``(events, merges)`` with ``return_merges`` when
         merging is on. ``checkpoint`` ('save', 'load' or 'auto') overrides
         the tracker's own (:meth:`run_preprocess`)."""
-        if self._comm is not None:
-            with self._comm.guard():
-                return self._run(return_merges, checkpoint)
-        return self._run(return_merges, checkpoint)
+        with tracing.span("track", self.device):
+            if self._comm is not None:
+                with self._comm.guard():
+                    return self._run(return_merges, checkpoint)
+            return self._run(return_merges, checkpoint)
 
     def _run(self, return_merges: bool, checkpoint: Optional[str]):
         logger.info("Starting complete tracking pipeline")
         log_memory_usage(logger, "Pipeline start", logging.DEBUG)
 
-        with log_timing(logger, "Data preprocessing", log_memory=True):
+        with log_timing(logger, "Data preprocessing", log_memory=True, span="track/preprocess"):
             data_bin_preprocessed, object_stats = self.run_preprocess(checkpoint=checkpoint)
 
-        with log_timing(logger, "Object identification and tracking", log_memory=True):
+        with log_timing(logger, "Object identification and tracking", log_memory=True, span="track/tracking"):
             events_ds, merges_ds, N_events_final = self.run_tracking(data_bin_preprocessed)
         del data_bin_preprocessed
 
-        with log_timing(logger, "Computing event statistics and attributes", log_memory=True):
+        with log_timing(logger, "Computing event statistics and attributes", log_memory=True, span="track/stats"):
             events_ds = self.run_stats_attributes(events_ds, merges_ds, object_stats, N_events_final)
 
         logger.info(f"Tracking pipeline completed successfully - {N_events_final} events identified")
@@ -833,9 +837,10 @@ class tracker:
         from .track_stream import run_tracking_streamed
 
         def run():
-            return run_tracking_streamed(
-                self, out_path, memory_budget_mb=memory_budget_mb, block_T=block_T, return_merges=return_merges
-            )
+            with tracing.span("track", self.device):
+                return run_tracking_streamed(
+                    self, out_path, memory_budget_mb=memory_budget_mb, block_T=block_T, return_merges=return_merges
+                )
 
         if self.mesh is None:
             return run()
@@ -862,22 +867,18 @@ class tracker:
         finally:
             self.mesh, self._comm, self._t0, self.data_bin = saved
 
-    @contextmanager
     def _stage_ctx(self, name: str):
-        """Accumulate the wall time of a pipeline substage into
-        ``self.stage_walls``. A stage that ran on CUDA ends with a
-        synchronise, so its device work is inside its own wall. The stage is
-        also a ``torch.profiler`` range of the same name."""
-        t0 = time.perf_counter()
-        try:
-            with torch.profiler.record_function(name):
-                yield
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-                self.stage_peak_bytes[name] = torch.cuda.max_memory_allocated(self.device)
-        finally:
-            d = self.stage_walls
-            d[name] = round(d.get(name, 0.0) + (time.perf_counter() - t0), 4)
+        """The tracing span of a pipeline stage, seen in ``stage_walls`` and
+        ``stage_peak_bytes``; on CUDA it waits for the tracker's device. The
+        benchmark reads these walls without ``tracing.collect()``, so a stage
+        records outside it too (``tracing._VIEWS``)."""
+        return tracing.span(name, self.device, self.stage_walls, self.stage_peak_bytes)
+
+    def _count_iterations(self, stage: str, iters: int, most: bool = False) -> None:
+        """A labelling fixpoint's iterations under ``stage``: the counter adds
+        them up, the view keeps the last (with ``most``, the largest)."""
+        self.ccl_iterations[stage] = max(self.ccl_iterations.get(stage, 0), iters) if most else iters
+        tracing.count(f"ccl/iterations/{stage}", iters)
 
     # -- a mesh's slabs ------------------------------------------------
 
@@ -982,7 +983,7 @@ class tracker:
         with self._stage_ctx("filter/ccl_fixpoint"):
             root_flat, counts_dev, iters = _label.label_slices_grid_roots(data, wrap_x=self._wrap)
             counts_own = counts_dev.cpu().numpy()
-        self.ccl_iterations["filter/ccl_fixpoint"] = iters
+        self._count_iterations("filter/ccl_fixpoint", iters)
         counts = self._joined(counts_own)
         L = int(counts.max()) if counts.size else 0
         if L == 0:
@@ -1217,7 +1218,7 @@ class tracker:
         if data.numel() >= TWO_LEVEL_CELLS or (slab and self._comm is not None):
             return self._label_spacetime_two_level(data, slab)
         labf, iters = _label.label_spacetime_roots(data, wrap_x=self._wrap)
-        self.ccl_iterations["ccl3d"] = iters
+        self._count_iterations("ccl3d", iters)
         dense, n_events = _label.densify_spacetime_roots(labf)
         return dense.view(data.shape), n_events
 
@@ -1370,14 +1371,14 @@ class tracker:
         iterations are recorded under ``stage``."""
         if self.unstructured_grid:
             labels, counts, iters = _label.label_slices_unstructured(data & self.mask_dev, self._nb_sym_dev)
-            self.ccl_iterations[stage] = iters
+            self._count_iterations(stage, iters)
             return labels, counts.cpu().numpy()
         cache, self._label_reuse = self._label_reuse, None
         if cache is not None and cache[0]() is data:
             _, root_flat, root_ids, keep = cache
         else:
             root_flat, _, iters = _label.label_slices_grid_roots(data, wrap_x=self._wrap)
-            self.ccl_iterations[stage] = iters
+            self._count_iterations(stage, iters)
             root_ids, _, _, _ = _label.slice_root_stats(root_flat)
             keep = None
         del cache
@@ -1433,18 +1434,20 @@ class tracker:
         smaller object's area."""
         if len(pairs) == 0:
             return pairs.reshape(0, 3)
-        keep = []
-        for a, b, w in pairs:
-            ia, ib = int(a), int(b)
-            if ia not in table or ib not in table:
-                continue
-            min_area = min(table.area(ia), table.area(ib))
-            if min_area > 0 and (w / min_area) >= self.overlap_threshold:
-                keep.append((a, b, w))
-        return np.array(keep, dtype=np.float64).reshape(-1, 3)
+        with tracing.span("march/threshold", self.device):
+            keep = []
+            for a, b, w in pairs:
+                ia, ib = int(a), int(b)
+                if ia not in table or ib not in table:
+                    continue
+                min_area = min(table.area(ia), table.area(ib))
+                if min_area > 0 and (w / min_area) >= self.overlap_threshold:
+                    keep.append((a, b, w))
+            return np.array(keep, dtype=np.float64).reshape(-1, 3)
 
     def _count_dispatch(self, kind: str) -> None:
         self.dispatch_counts[kind] = self.dispatch_counts.get(kind, 0) + 1
+        tracing.count(f"march/dispatch/{kind}")
 
     def _per_slice_pairs_device(self, labels: torch.Tensor) -> List[np.ndarray]:
         """(id_a, id_b, w) triples for every consecutive slice pair, one
@@ -1578,34 +1581,35 @@ class tracker:
                         break
 
                     batch: List[Tuple[int, np.ndarray, np.ndarray]] = []
-                    for child_id in merging:
-                        child_id = int(child_id)
-                        rows_idx = np.nonzero(cur[:, 1] == child_id)[0]
-                        rows = cur[rows_idx]
-                        if len(rows) < 2:
-                            continue
-                        parent_ids = rows[:, 0].astype(np.int64)
-                        n_parents = len(parent_ids)
-                        if n_parents > MAX_PARENTS:
-                            raise TrackingError(
-                                "Too many parent objects for tracking",
-                                details=f"Child {child_id} has {n_parents} parents (limit: {MAX_PARENTS})",
-                                suggestions=[
-                                    "Increase overlap_threshold to reduce fragmentation",
-                                    "Apply stronger area filtering",
-                                ],
-                                context={"child_id": child_id, "n_parents": int(n_parents), "limit": MAX_PARENTS},
-                            )
-                        new_ids = np.arange(st.next_new_id, st.next_new_id + n_parents - 1, dtype=np.int64)
-                        st.next_new_id += n_parents - 1
-                        child_ids = np.concatenate([[child_id], new_ids]).astype(np.int64)
-                        cur[rows_idx[1:], 1] = new_ids  # in-place rewiring
+                    with tracing.span("march/batch", self.device):
+                        for child_id in merging:
+                            child_id = int(child_id)
+                            rows_idx = np.nonzero(cur[:, 1] == child_id)[0]
+                            rows = cur[rows_idx]
+                            if len(rows) < 2:
+                                continue
+                            parent_ids = rows[:, 0].astype(np.int64)
+                            n_parents = len(parent_ids)
+                            if n_parents > MAX_PARENTS:
+                                raise TrackingError(
+                                    "Too many parent objects for tracking",
+                                    details=f"Child {child_id} has {n_parents} parents (limit: {MAX_PARENTS})",
+                                    suggestions=[
+                                        "Increase overlap_threshold to reduce fragmentation",
+                                        "Apply stronger area filtering",
+                                    ],
+                                    context={"child_id": child_id, "n_parents": int(n_parents), "limit": MAX_PARENTS},
+                                )
+                            new_ids = np.arange(st.next_new_id, st.next_new_id + n_parents - 1, dtype=np.int64)
+                            st.next_new_id += n_parents - 1
+                            child_ids = np.concatenate([[child_id], new_ids]).astype(np.int64)
+                            cur[rows_idx[1:], 1] = new_ids  # in-place rewiring
 
-                        st.merge_times.append(time_values[t])
-                        st.merge_child_ids.append(child_ids)
-                        st.merge_parent_ids.append(parent_ids)
-                        st.merge_areas.append(rows[:, 2])
-                        batch.append((child_id, parent_ids, child_ids))
+                            st.merge_times.append(time_values[t])
+                            st.merge_child_ids.append(child_ids)
+                            st.merge_parent_ids.append(parent_ids)
+                            st.merge_areas.append(rows[:, 2])
+                            batch.append((child_id, parent_ids, child_ids))
 
                     if batch:
                         with self._stage_ctx("march/partition"):

@@ -255,7 +255,7 @@ def _label_block(tr: tracker, data: torch.Tensor, stage: str = "filter/ccl_fixpo
             labels, counts, iters = _label.label_slices_unstructured(data & tr.mask_dev, tr._nb_sym_dev)
         else:
             root_flat, _, iters = _label.label_slices_grid_roots(data, wrap_x=tr._wrap)
-        tr.ccl_iterations[stage] = max(tr.ccl_iterations.get(stage, 0), iters)
+        tr._count_iterations(stage, iters, most=True)
     with tr._stage_ctx(stats_stage):
         if tr.unstructured_grid:
             counts = counts.cpu().numpy()

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import marex_tpu_torch as port
+from marex_tpu_torch import tracing
 from marex_tpu_torch.ops import label as port_label
 from marex_tpu_torch.ops.min_stencil import (
     BIG,
@@ -491,7 +492,8 @@ def test_two_level_labelling_on_cuda_matches_fused(monkeypatch, regional):
     fused = port.tracker(ev, mask, device="cuda", **kw).run()
     monkeypatch.setattr(ptrack, "TWO_LEVEL_CELLS", 1)
     runs = {d: port.tracker(ev, mask, device=d, **kw) for d in ("cuda", "cpu")}
-    out = {d: tr.run() for d, tr in runs.items()}
+    with tracing.collect():
+        out = {d: tr.run() for d, tr in runs.items()}
     assert "ccl3d/edges" in runs["cuda"].stage_walls
     assert fused.attrs["N_events_final"] > 1
     for d in ("cuda", "cpu"):
@@ -699,3 +701,47 @@ def test_streamed_tracking_on_a_one_rank_nccl_mesh(tmp_path):
         pytest.fail("the one-rank NCCL world hung")
     out = out.decode(errors="replace")
     assert child.returncode == 0 and "STREAMED MESH OK" in out, out[-4000:]
+
+
+@pytest.mark.cuda
+def test_tracer_counts_each_host_sync_on_cuda():
+    """A span that makes N ``.item()`` calls counts N ``host_syncs``; the
+    tracer's own synchronise at a span's end counts none."""
+    _need_cuda()
+    x = torch.arange(16, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    with tracing.collect() as rec:
+        with tracing.span("items"):
+            got = [x[i].item() for i in range(7)]
+        with tracing.span("no_sync"):
+            y = x * 2
+    assert got == list(range(7)) and y.shape == x.shape
+    assert rec.spans["items"].host_syncs == 7 and rec.spans["no_sync"].host_syncs == 0
+    assert rec.counters["host_syncs"] == 7
+    assert torch.cuda.get_sync_debug_mode() == 0  # the block's debug mode is undone
+
+
+@pytest.mark.cuda
+def test_tracer_own_peaks_on_cuda():
+    """Own peaks of nested spans on a hand-made allocation pattern: a child's
+    peak shows in its parent, a later sibling's does not carry the earlier
+    one's, and the block's peak is the largest."""
+    _need_cuda()
+    torch.cuda.synchronize()
+    mib = 1 << 20
+    base = torch.cuda.memory_allocated()
+    with tracing.collect() as rec:
+        keep = torch.empty(64 * mib, dtype=torch.uint8, device="cuda")
+        with tracing.span("a"):
+            with tracing.span("a/b"):
+                t = torch.empty(256 * mib, dtype=torch.uint8, device="cuda")
+                del t
+            with tracing.span("a/c"):
+                t = torch.empty(32 * mib, dtype=torch.uint8, device="cuda")
+                del t
+        with tracing.span("d"):
+            pass
+        del keep
+    own = {n: s.peak_bytes for n, s in rec.spans.items()}
+    assert own == {"a": base + 320 * mib, "a/b": base + 320 * mib, "a/c": base + 96 * mib, "d": base + 64 * mib}
+    assert rec.peak_bytes == base + 320 * mib

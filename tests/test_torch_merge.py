@@ -17,6 +17,7 @@ import torch
 import marex_tpu as ref
 import marex_tpu_torch as port
 from marex_tpu import _native as ref_native
+from marex_tpu_torch import tracing
 from marex_tpu.ops import label as ref_label
 from marex_tpu.ops import overlap as ref_overlap
 from marex_tpu_torch import _native as port_native
@@ -36,7 +37,8 @@ def _run_both(ev, mask, **kw):
     r_tr.use_scan_march = False
     r = r_tr.run(return_merges=True)
     p_tr = port.tracker(from_reference(ev, "cpu"), from_reference(mask, "cpu"), device="cpu", **kw)
-    p = p_tr.run(return_merges=True)
+    with tracing.collect():
+        p = p_tr.run(return_merges=True)
     return r, p, p_tr
 
 

@@ -12,6 +12,7 @@ import pytest
 
 import marex_tpu as ref
 import marex_tpu_torch as port
+from marex_tpu_torch import tracing
 from marex_tpu_torch.core.field import from_reference
 
 from .torch_parity import DETECT_FIXED, TRACK_SMALL, assert_close, assert_same, drive_sst
@@ -20,9 +21,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run_port(sst, device):
-    ds = port.preprocess_data(from_reference(sst, device), device=device, quiet=True, **DETECT_FIXED)
-    tr = port.tracker(ds["extreme_events"], ds["mask"], device=device, quiet=True, **TRACK_SMALL)
-    return ds, tr.run(), tr
+    with tracing.collect():
+        ds = port.preprocess_data(from_reference(sst, device), device=device, quiet=True, **DETECT_FIXED)
+        tr = port.tracker(ds["extreme_events"], ds["mask"], device=device, quiet=True, **TRACK_SMALL)
+        return ds, tr.run(), tr
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from marex_tpu.core.field import Field as RefField
 from marex_tpu.ops import label as ref_label
 from marex_tpu.ops import morphology as ref_morph
 from marex_tpu.ops import properties as ref_props
+from marex_tpu_torch import tracing
 from marex_tpu_torch.core.field import from_reference
 from marex_tpu_torch.ops import label as port_label
 from marex_tpu_torch.ops import morphology as port_morph
@@ -114,7 +115,9 @@ def test_regional_tracking_without_merging_matches(area, monkeypatch):
     data = blob_field(3, 30, H, W, 80, 5)
     ev, mask = regional_fields(data)
     r_tr, p_tr = both_trackers(ev, mask, monkeypatch, R_fill=2, T_fill=2, allow_merging=False, **area)
-    r, p = r_tr.run(), p_tr.run()
+    r = r_tr.run()
+    with tracing.collect():
+        p = p_tr.run()
     assert_same(r["ID_field"].values, p["ID_field"].values, "ID_field")
     assert p["ID_field"].dims == r["ID_field"].dims
     assert p.attrs == r.attrs and p.attrs["N_events_final"] > 0

@@ -16,6 +16,7 @@ import torch
 import marex_tpu as ref
 import marex_tpu_torch as port
 import marex_tpu_torch.track as ptrack
+from marex_tpu_torch import tracing
 from marex_tpu_torch.core.field import from_reference
 
 from .torch_parity import assert_same, blob_field, bool_fields, one_torch_thread  # noqa: F401
@@ -59,11 +60,13 @@ def test_run_matches_fused_and_reference(wrap, seed, ref_two_level, monkeypatch,
     data = blob_field(seed, 40, H, W, 70, 4)
     ev, mask = _fields(data, wrap)
     fused_tr = _port_tracker(ev, mask, wrap)
-    fused = fused_tr.run()
+    with tracing.collect():
+        fused = fused_tr.run()
     assert "ccl3d/edges" not in fused_tr.stage_walls
     monkeypatch.setattr(ptrack, "TWO_LEVEL_CELLS", 1)
     two_tr = _port_tracker(ev, mask, wrap)
-    two = two_tr.run()
+    with tracing.collect():
+        two = two_tr.run()
     assert {"ccl3d/edges", "ccl3d/union", "ccl3d/remap"} <= set(two_tr.stage_walls)
     assert "ccl3d" not in two_tr.ccl_iterations, "the two-level route labels the slices once, in the area filter"
     r = ref.tracker(ev, mask, **_kw(wrap)).run()

@@ -25,6 +25,7 @@ from marex_tpu.ops import overlap as ref_overlap
 from marex_tpu.ops import partition as ref_part
 from marex_tpu.ops import properties as ref_props
 from marex_tpu.track import _symmetrize_neighbours as ref_symmetrize
+from marex_tpu_torch import tracing
 from marex_tpu_torch.core.field import from_reference
 from marex_tpu_torch.ops import label as port_label
 from marex_tpu_torch.ops import morphology as port_morph
@@ -260,7 +261,9 @@ def run_both(fields, merges=True, **kw):
     r_tr.use_scan_march = False
     p_tr = port.tracker(*(from_reference(f, "cpu") for f in (ev, mask)), neighbours=from_reference(nb, "cpu"),
                         cell_areas=from_reference(ca, "cpu"), device="cpu", **kw)
-    return r_tr.run(return_merges=merges), p_tr.run(return_merges=merges), p_tr
+    r = r_tr.run(return_merges=merges)
+    with tracing.collect():
+        return r, p_tr.run(return_merges=merges), p_tr
 
 
 def assert_equal_mesh_runs(r, p):
