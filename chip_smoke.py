@@ -22,7 +22,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
    symmetrising (more than 3 rows, ``-1`` entries, ragged cell counts),
    ``out`` BIG-filled and stale, the flag, and the whole mesh fixpoint
    against the CPU's; then both timed at (64, 1048352) beside
-   ``index_select`` and ``torch.take``;
+   ``index_select`` and ``torch.take``. The grid partition kernel
+   (``marex_partition_grid``) against its plain version on random batches of
+   blocky parents and children (the updated slice and the pieces' props bit
+   for bit) at 720 x 1440, 719 x 1441 and ragged small shapes, with (K, P) of
+   (1, 2), (4, 3) and (2, 10), ``wrap`` on and off and caps 0, 40 and 600;
 4. the paths at small sizes, on CUDA and on the CPU (plain versions). At
    3 yr x 180 x 360: config 1 (no merging) with boolean and integer outputs
    bit-identical and floats within 1e-5, then again with the two-level event
@@ -90,9 +94,16 @@ Phases, each of which raises (and so exits nonzero) on failure:
    kernels' launch counts set to 0 just before it and read just after, and
    must have launched the kernels it labels on and none of the others
    (config 5 the mesh kernels, the gridded paths ``ccl_step`` and
-   ``pointer_jump``; config 7, detect alone, labels nothing);
-6. the kernels on the paths' own labels: the area filter's fixpoint on
-   config 4's field, run by hand with each launch timed, and at its
+   ``pointer_jump``, and those that merge on the grid, configs 4, 6 and 8,
+   also ``partition``; config 7, detect alone, labels nothing); config 4's
+   partition launches must equal its ``partition`` dispatches, and every
+   40th of its batches is kept (on the host) for phase 6;
+6. the kernels on the paths' own labels: config 4's kept partition
+   batches, each held against the plain version and timed (the kernels'
+   own launches, the whole call, the plain version, and the column pass
+   the port ran before the kernel, row-windowed as the tracker chose)
+   beside the byte bound of the two label slices read and one written;
+   the area filter's fixpoint on config 4's field, run by hand with each launch timed, and at its
    iterations 1, 6 and 12 the fused step and the jump timed beside the
    nearest single PyTorch calls and beside the unfused iteration as far as
    this tree still has it (the stencil alone, a clone, the jump and a full
@@ -230,6 +241,8 @@ CONFIG6_TRACK = dict(R_fill=2, T_fill=0, area_filter_quartile=0.0, nn_partitioni
 # the kernels each path labels on
 GRID_KERNELS = ("ccl_step", "pointer_jump")
 MESH_KERNELS = ("active_cells", "graph_step", "graph_jump")
+# the paths that merge on a grid with nearest-cell partitioning, which also launch the partition kernel
+GRID_MERGE_PATHS = ("merge path (config 4)", "config 6", "config 8")
 # the counts that ``__graft_entry__.dryrun_multichip(n)`` prints, the same for n = 1, 2 and 4:
 #   JAX_PLATFORMS=cpu python -c "import __graft_entry__ as g; g.dryrun_multichip(2)"
 DRYRUN_REFERENCE = {"n_events": 34, "total_merges": 18, "shifting+hobday extremes": 4802,
@@ -1003,8 +1016,12 @@ def main_paths(mx, ny: int, nx: int, seed: int, kernels: dict, device: str):
             torch.cuda.reset_peak_memory_stats()
         for fn in kernels.values():
             fn.launch_count = 0
-        ds, events, merges, tr, t_det, t_trk, detect_peak = run_slice(mx, sst, coords, device, ny, merge, detect)
+        with kept_partitions(40, refs.setdefault("partition batches", [])) if merge else contextlib.nullcontext():
+            ds, events, merges, tr, t_det, t_trk, detect_peak = run_slice(mx, sst, coords, device, ny, merge, detect)
         launches[path] = {k: fn.launch_count for k, fn in kernels.items()}
+        if launches[path]["partition"] != tr.dispatch_counts.get("partition", 0):
+            raise AssertionError(f"{path}: {launches[path]['partition']} partition launches for "
+                                 f"{tr.dispatch_counts.get('partition', 0)} partition dispatches")
         thr, mask = ds["thresholds"].data, ds["mask"].data
         if not bool(torch.isfinite(thr[..., mask]).all()):
             raise AssertionError("non-finite thresholds over the ocean")
@@ -1321,6 +1338,148 @@ def regional_kwargs(ny: int, merge: bool = False) -> dict:
     if merge:
         kw.update(allow_merging=True, nn_partitioning=True, overlap_threshold=0.25)
     return kw
+
+
+def partition_batch(g: torch.Generator, H: int, W: int, K: int, P: int, cap: float) -> list:
+    """A random batch for the grid partition, made on the card: parents as
+    8 x 8 blocks of ids 1..K*P (and ids no slot names) in the previous
+    slice, children as 16 x 16 blocks of ids 1001..1000+K, so that every
+    piece is ragged and every parent scattered; piece ids 2000 + k*P + p (the
+    first the child's), random centroids, every cap ``cap``; with K >= 4
+    slot 2 is inactive (id 0) and slot (0, P - 1) invalid."""
+    def blocks(n: int, b: int) -> torch.Tensor:
+        c = torch.randint(0, n, (-(-H // b), -(-W // b)), generator=g, device="cuda", dtype=torch.int32)
+        return c.repeat_interleave(b, 0).repeat_interleave(b, 1)[:H, :W].contiguous()
+
+    prev = blocks(K * P + 4, 8)
+    cur = blocks(K + 1, 16)
+    cur = torch.where(cur > 0, cur + 1000, 0).to(torch.int32)
+    child = torch.arange(1001, 1001 + K, dtype=torch.int32, device="cuda")
+    piece = torch.arange(2000, 2000 + K * P, dtype=torch.int32, device="cuda").view(K, P).contiguous()
+    piece[:, 0] = child
+    pids = torch.arange(1, K * P + 1, dtype=torch.int32, device="cuda").view(K, P).contiguous()
+    valid = torch.ones((K, P), dtype=torch.bool, device="cuda")
+    if K >= 4:
+        child[2] = 0
+        valid[0, P - 1] = False
+    cents = torch.rand((K, P, 2), generator=g, device="cuda") * torch.tensor([H - 1.0, W - 1.0], device="cuda")
+    mdist = torch.full((K,), cap, dtype=torch.float32, device="cuda")
+    return [prev, cur, child, piece, pids, valid, cents, mdist]
+
+
+def partition_against_plain(g: torch.Generator) -> int:
+    """Phase 3: the partition kernel against its plain version on random
+    batches, bit for bit on the updated slice and the props; returns the
+    number of checks."""
+    from marex_tpu_torch.ops.partition import partition_children_grid_batched, partition_children_grid_plain
+
+    n = 0
+    for H, W in ((720, 1440), (719, 1441), (33, 70), (1, 5), (6, 1)):
+        for K, P in ((1, 2), (4, 3), (2, 10)):
+            for wrap in (True, False):
+                for cap in (0.0, 40.0, 600.0):
+                    args = partition_batch(g, H, W, K, P, cap)
+                    got = partition_children_grid_batched(*args, True, wrap)
+                    want = partition_children_grid_plain(*args, True, wrap)
+                    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                        raise AssertionError(f"partition ({H}, {W}) K={K} P={P} wrap={wrap} cap={cap}: "
+                                             f"{int((got[0] != want[0]).sum())} cells differ, props "
+                                             f"{float((got[1] - want[1]).abs().max())} apart")
+                    n += 1
+    return n
+
+
+@contextlib.contextmanager
+def kept_partitions(every: int, keep: list):
+    """Keep every ``every``-th grid partition call's arguments, copied to the
+    host, while the block runs: the tracker's module sees a copy of the
+    partition module whose batched partition keeps them (the function itself
+    stays, with its launch count)."""
+    import types
+
+    from marex_tpu_torch import track
+
+    part = track._part
+    fn = part.partition_children_grid_batched
+    calls = [0]
+
+    def keeping(*args):
+        if calls[0] % every == 0:
+            keep.append([a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+        calls[0] += 1
+        return fn(*args)
+
+    track._part = types.SimpleNamespace(**{**vars(part), "partition_children_grid_batched": keeping})
+    try:
+        yield
+    finally:
+        track._part = part
+
+
+def parent_column_pass(prev, parent_ids, parent_valid, max_cap: float, wrap: bool) -> torch.Tensor:
+    """The parents' masks and the squared EDT as the port ran them before the
+    partition kernel (the yardstick): the cap rounded up to a power of two
+    ``win``, then ``2 win`` full-slice minimum passes over rows, or, where
+    ``2 win + 1 >= H``, the exact column min in blocks."""
+    from marex_tpu_torch.ops.partition import _row_distance_periodic, euclidean_distance_transform_grid
+
+    H = prev.shape[0]
+    pmasks = (prev[None, None] == parent_ids[..., None, None]) & parent_valid[..., None, None]
+    win = 1 << max(0, int(np.ceil(np.log2(max(max_cap, 1.0)))))
+    if 2 * win + 1 >= H:
+        return euclidean_distance_transform_grid(pmasks, wrap)
+    d1 = _row_distance_periodic(pmasks, wrap)
+    d1sq = d1 * d1
+    out = d1sq.clone()
+    for dy in range(1, win + 1):
+        torch.minimum(out[..., dy:, :], d1sq[..., :-dy, :] + float(dy * dy), out=out[..., dy:, :])
+        torch.minimum(out[..., :-dy, :], d1sq[..., dy:, :] + float(dy * dy), out=out[..., :-dy, :])
+    return out
+
+
+def partition_labels(batches: list) -> dict:
+    """Phase 6: the partition kernel on config 4's kept batches: each held
+    against the plain version (bit for bit), then timed: the two launches
+    alone on scratch made once, the whole call (the output's copy, the sums'
+    zeros, the props), the plain version and the column pass the port ran
+    before; the means over the batches, and the byte bound (two int32 label
+    slices read once, one written). Returns the JSON fields."""
+    from marex_tpu_torch._cuda_build import kernel_library
+    from marex_tpu_torch.ops.partition import partition_children_grid_batched, partition_children_grid_plain
+
+    lib = kernel_library()
+    sums = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    shapes = []
+    for kept in batches:
+        args = [a.cuda() for a in kept[:8]]
+        wrap = bool(kept[9])
+        prev, cur, child, piece, pids, valid, cents, mdist = args
+        H, W = cur.shape
+        K, P = pids.shape
+        got = partition_children_grid_batched(*args, True, wrap)
+        want = partition_children_grid_plain(*args, True, wrap)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"partition on config 4's batch K={K} P={P}: differs from the plain version")
+        out = cur.clone()
+        acc = torch.zeros((K, P, 6), dtype=torch.int64, device="cuda")
+        rowd = torch.empty((K, P, H, W), dtype=torch.int32, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [a.data_ptr() for a in args] + [rowd.data_ptr(), out.data_ptr(), acc.data_ptr()]
+        sums["ms"] += cuda_ms(lambda: lib.marex_partition_grid(*ptrs, K, P, H, W, int(wrap), stream), reps=50)
+        sums["call_ms"] += cuda_ms(lambda: partition_children_grid_batched(*args, True, wrap), reps=50)
+        sums["plain_ms"] += cuda_ms(lambda: partition_children_grid_plain(*args, True, wrap), reps=2)
+        sums["library_ms"] += cuda_ms(lambda: parent_column_pass(prev, pids, valid, float(mdist.max()), wrap), reps=2)
+        shapes.append((K, P, int((cur[None] == child[:, None, None]).sum())))
+        del args, got, want, out, acc, rowd
+    n = max(len(batches), 1)
+    res = {k: v / n for k, v in sums.items()}
+    H, W = batches[0][1].shape
+    res.update(bound_ms=bound_ms(12 * H * W), bound_by="bytes", batches=len(batches))
+    print(f"partition on {len(batches)} of config 4's batches (K, P, child cells: {shapes}): kernels "
+          f"{res['ms']:.4f} ms, whole call {res['call_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, the column pass "
+          f"before {res['library_ms']:.4f} ms (means); bound {res['bound_ms']:.4f} ms "
+          f"({100 * res['bound_ms'] / res['ms']:.1f} % of the kernels' time)")
+    return {"partition": res}
 
 
 def graph_step_against_plain(g: torch.Generator, seed: int):
@@ -1785,13 +1944,16 @@ def streamed_paths(mx, refs: dict, kernels: dict, plot_inputs: dict, keep_dir: s
 def kernels_of(path: str) -> tuple:
     """The kernels a path labels on: none for detect alone (config 7, a
     detect run), the mesh's on config 5, both sets in the dry run (its grid
-    and mesh drives), the grid's on every other path."""
+    and mesh drives), the grid's on every other path, and the partition
+    kernel too where the path merges on a grid."""
     if path == "config 7" or "detect" in path:
         return ()
     if path.startswith("config 5"):
         return MESH_KERNELS
     if path.startswith("dryrun"):
-        return GRID_KERNELS + MESH_KERNELS
+        return GRID_KERNELS + MESH_KERNELS + ("partition",)
+    if path.startswith(GRID_MERGE_PATHS):
+        return GRID_KERNELS + ("partition",)
     return GRID_KERNELS
 
 
@@ -2437,11 +2599,12 @@ def mesh_child(seed: int) -> int:
     import marex_tpu_torch as mx
     from marex_tpu_torch.ops.graph_step import active_cells, graph_jump, graph_step
     from marex_tpu_torch.ops.min_stencil import ccl_step, pointer_jump
+    from marex_tpu_torch.ops.partition import partition_children_grid_batched
 
     info = mx.start_distributed_cluster()
     print(f"rank {info.process_index} of {info.n_processes} ({info.extra}) on cuda:{torch.cuda.current_device()}")
     kernels = {"ccl_step": ccl_step, "pointer_jump": pointer_jump, "active_cells": active_cells,
-               "graph_step": graph_step, "graph_jump": graph_jump}
+               "graph_step": graph_step, "graph_jump": graph_jump, "partition": partition_children_grid_batched}
     out = {}
 
     def counted(name: str, fn, mesh):
@@ -2618,6 +2781,7 @@ def main() -> int:
         pointer_jump_plain,
         spacetime_min_plain,
     )
+    from marex_tpu_torch.ops.partition import partition_children_grid_batched
 
     # ---- 2. build ---------------------------------------------------------
     _cuda_build.kernel_library()
@@ -2633,7 +2797,7 @@ def main() -> int:
     # ---- 3. kernels against their plain versions --------------------------
     g = torch.Generator(device="cuda")
     g.manual_seed(args.seed)
-    err = {"ccl_step": 0, "pointer_jump": 0}
+    err = {"ccl_step": 0, "pointer_jump": 0, "partition": 0}
     n_checks = 0
 
     def check(k: str, kernel, plain, what: str) -> None:
@@ -2755,6 +2919,10 @@ def main() -> int:
           f"5's own shape ({MESH_DAYS} slices of the mesh of {MESH_CELLS} cells asked for)")
     graph_step_random_times(g)
     torch.cuda.empty_cache()
+    n_part = partition_against_plain(g)
+    print(f"partition: {n_part} checks bit-identical to the plain version (tolerance 0), at 720 x 1440, 719 x 1441 "
+          f"and ragged small shapes")
+    torch.cuda.empty_cache()
 
     # ---- 4. the paths, CUDA against CPU, at small sizes ---------------------
     slices_against_cpu(mx, 180, 360, args.seed, "cuda")
@@ -2765,9 +2933,10 @@ def main() -> int:
 
     # ---- 5. the paths at full size -----------------------------------------
     kernels = {"ccl_step": ccl_step, "pointer_jump": pointer_jump, "active_cells": active_cells,
-               "graph_step": graph_step, "graph_jump": graph_jump}
+               "graph_step": graph_step, "graph_jump": graph_jump, "partition": partition_children_grid_batched}
     launches, refs = main_paths(mx, 720, 1440, args.seed, kernels, "cuda")
     plot_inputs, phase5_digests = refs.pop("plot"), refs.pop("digests")
+    partition_batches = refs.pop("partition batches")
     plot_dir = tempfile.mkdtemp(prefix="marex_smoke_plot_")  # config 8's output store, for phase 7
     atexit.register(shutil.rmtree, plot_dir, True)
     launches.update(mesh_and_regional_paths(mx, args.seed, kernels, plot_inputs))
@@ -2781,7 +2950,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. the kernels on the paths' own labels -----------------------------
-    label_times = main_path_labels(mx, args.seed)
+    label_times = partition_labels(partition_batches)
+    del partition_batches
+    torch.cuda.empty_cache()
+    label_times.update(main_path_labels(mx, args.seed))
     torch.cuda.empty_cache()
     mesh_times, mesh_err = mesh_labels(mx, args.seed)
     label_times.update(mesh_times)
@@ -2814,11 +2986,12 @@ def main() -> int:
 
     # each kernel's launches on the path that runs it: the merge path, and for the mesh kernels config 5
     source = {"ccl_step": "min_stencil.cu", "pointer_jump": "min_stencil.cu", "active_cells": "graph_step.cu",
-              "graph_step": "graph_step.cu", "graph_jump": "graph_step.cu"}
-    # the list takes the place of the mask that _unstr_block's step applies to every cell
+              "graph_step": "graph_step.cu", "graph_jump": "graph_step.cu", "partition": "partition.cu"}
+    # the list takes the place of the mask that _unstr_block's step applies to every cell; the partition
+    # replaces no Pallas kernel, but the XLA distance transform of partition_nn_grid
     replaces = {"ccl_step": "marex_tpu/ops/pallas_kernels.py:60", "pointer_jump": "marex_tpu/ops/label.py:130",
                 "active_cells": "marex_tpu/ops/label.py:307", "graph_step": "marex_tpu/ops/label.py:307",
-                "graph_jump": "marex_tpu/ops/label.py:130"}
+                "graph_jump": "marex_tpu/ops/label.py:130", "partition": "marex_tpu/ops/partition.py:151"}
     print(json.dumps({"kernels": [
         {
             "name": k,

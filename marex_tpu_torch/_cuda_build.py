@@ -23,7 +23,7 @@ from pathlib import Path
 from .exceptions import DeviceError
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = (_PKG / "csrc" / "min_stencil.cu", _PKG / "csrc" / "graph_step.cu")
+_SOURCES = (_PKG / "csrc" / "min_stencil.cu", _PKG / "csrc" / "graph_step.cu", _PKG / "csrc" / "partition.cu")
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -107,4 +107,6 @@ def kernel_library() -> ctypes.CDLL:
     lib.marex_count_active.restype = i
     lib.marex_write_active.argtypes = [p, ll, p, p, p]
     lib.marex_write_active.restype = i
+    lib.marex_partition_grid.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.marex_partition_grid.restype = i
     return lib

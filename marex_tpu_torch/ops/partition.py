@@ -14,7 +14,13 @@ as infinitely far.
 
 Squared distances are integers below 2**24, so every exact method gives the
 reference's float32 values; ties in an argmin go to the lowest parent index,
-as in ``jnp.argmin``.
+as in ``jnp.argmin``. On the card the nearest-parent partition of a step's
+children is the hand-written CUDA kernel ``csrc/partition.cu``
+(``marex_partition_grid``: the row distance, then at each child cell the
+exact column pass out to the cap, fused with the argmin, the fallback, the
+piece ids and the pieces' sums);
+:func:`partition_children_grid_plain` is the same function in plain
+PyTorch, which the CPU runs and the kernel is held against.
 
 On a mesh the nearest parent cell is found by hop distance (a breadth-first
 search over the neighbour table from each parent's overlap with the child,
@@ -35,10 +41,17 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .properties import grid_mask_props, mesh_segment_sums, mesh_unit_vectors, spherical_centroids, unstructured_mask_props
+from .properties import (
+    grid_mask_props,
+    grid_sums_props,
+    mesh_segment_sums,
+    mesh_unit_vectors,
+    spherical_centroids,
+    unstructured_mask_props,
+)
 
 _INF = float("inf")
-# bytes for the column pass's (masks, rows, H, W) float32 temporary
+# bytes for the plain column pass's (masks, rows, source rows, W) float32 temporary
 _EDT_BLOCK_BYTES = 1 << 30
 
 
@@ -106,21 +119,14 @@ def _row_distance_periodic(mask: torch.Tensor, wrap: bool) -> torch.Tensor:
     return torch.where(d >= 2 * W, _INF, d.float())
 
 
-def euclidean_distance_transform_grid(
-    parent_masks: torch.Tensor, wrap: bool = True, row_window: int = 0
-) -> torch.Tensor:
+def euclidean_distance_transform_grid(parent_masks: torch.Tensor, wrap: bool = True) -> torch.Tensor:
     """
     Exact squared Euclidean distance to the nearest True cell of each mask,
     periodic in x when ``wrap``: the row distance, then a column pass
-    ``min over y of d_row(y)**2 + (y - y0)**2``.
+    ``min over y of d_row(y)**2 + (y - y0)**2`` over every row that holds a
+    cell of some mask, in blocks of at most ``_EDT_BLOCK_BYTES``.
 
     parent_masks : (..., H, W) bool
-    row_window : when > 0 (and 2 * row_window + 1 < H), the column pass only
-        looks at rows within ``row_window`` of each output row; distances
-        beyond the window come out too large (or inf), which is exact for
-        every distance <= row_window — the merge march caps distances and
-        passes a window that covers the cap.
-
     Returns (..., H, W) float32 squared distances (inf where a mask is empty).
     """
     lead = parent_masks.shape[:-2]
@@ -128,12 +134,6 @@ def euclidean_distance_transform_grid(
     d1 = _row_distance_periodic(parent_masks, wrap).reshape(-1, H, W)
     d1sq = d1 * d1
     B = d1sq.shape[0]
-    if row_window and 2 * row_window + 1 < H:
-        out = d1sq.clone()
-        for dy in range(1, int(row_window) + 1):
-            torch.minimum(out[:, dy:], d1sq[:, :-dy] + float(dy * dy), out=out[:, dy:])
-            torch.minimum(out[:, :-dy], d1sq[:, dy:] + float(dy * dy), out=out[:, :-dy])
-        return out.view(*lead, H, W)
     # only rows holding a cell of some mask can be nearest: the others are
     # inf in every mask and drop out of the min
     src = torch.isfinite(d1sq).any(dim=2).any(dim=0).nonzero().squeeze(1)
@@ -158,12 +158,11 @@ def partition_nn_grid(
     parent_centroids: torch.Tensor,
     max_distance: torch.Tensor,
     wrap: bool = True,
-    row_window: int = 0,
 ) -> torch.Tensor:
     """
     Assign every cell to its nearest parent cell (exact EDT, capped at
     ``max_distance``), falling back to the nearest parent centroid for cells
-    beyond the cap. ``row_window`` must cover ``max_distance`` when nonzero.
+    beyond the cap.
 
     child_mask : (..., H, W) bool (fixes the grid shape)
     parent_masks : (..., P, H, W) bool; parent_valid : (..., P) bool
@@ -171,13 +170,43 @@ def partition_nn_grid(
     Returns (..., H, W) int64 parent index.
     """
     H, W = child_mask.shape[-2:]
-    d = torch.sqrt(euclidean_distance_transform_grid(parent_masks, wrap, row_window))
+    d = torch.sqrt(euclidean_distance_transform_grid(parent_masks, wrap))
     d = torch.where(parent_valid[..., None, None], d, _INF)
     d = torch.where(d <= max_distance[..., None, None, None], d, _INF)
     dmin, assign = _argmin_parents(d)
     reached = torch.isfinite(dmin)
     fallback = centroid_assign_grid(parent_centroids, parent_valid, (H, W), wrap)
     return torch.where(reached, assign, fallback)
+
+
+def partition_children_grid_plain(
+    prev_labels: torch.Tensor,
+    cur_labels: torch.Tensor,
+    child_ids: torch.Tensor,
+    piece_ids: torch.Tensor,
+    parent_ids: torch.Tensor,
+    parent_valid: torch.Tensor,
+    parent_cents: torch.Tensor,
+    max_dist: torch.Tensor,
+    nn: bool,
+    wrap: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`partition_children_grid_batched` in plain PyTorch, on any
+    device: the parents' masks and the exact EDT over whole slices."""
+    H, W = cur_labels.shape
+    K, P = parent_ids.shape
+    child_mask = (cur_labels[None] == child_ids[:, None, None]) & (child_ids > 0)[:, None, None]
+    if nn:
+        pmasks = (prev_labels[None, None] == parent_ids[..., None, None]) & parent_valid[..., None, None]
+        assign = partition_nn_grid(child_mask, pmasks, parent_valid, parent_cents, max_dist, wrap)
+        del pmasks
+    else:
+        assign = centroid_assign_grid(parent_cents, parent_valid, (H, W), wrap)
+    update = torch.where(child_mask, torch.gather(piece_ids, 1, assign.view(K, -1)).view(K, H, W), 0)
+    pieces = child_mask[:, None] & (assign[:, None] == torch.arange(P, device=assign.device)[None, :, None, None])
+    props = grid_mask_props(pieces, wrap)
+    upd = update.amax(dim=0)  # children are disjoint
+    return torch.where(upd > 0, upd, cur_labels), props
 
 
 def partition_children_grid_batched(
@@ -191,7 +220,6 @@ def partition_children_grid_batched(
     max_dist: torch.Tensor,
     nn: bool,
     wrap: bool,
-    row_window: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """
     Partition all merging children of one march iteration at once. Children
@@ -199,7 +227,8 @@ def partition_children_grid_batched(
     so the batch equals the reference's per-child loop.
 
     prev_labels, cur_labels : (H, W) int32 label slices at t-1 / t
-    child_ids    : (K,) int32 merging child ids (0 = inactive slot)
+    child_ids    : (K,) int32 merging child ids (0 = inactive slot; the
+                   others distinct)
     piece_ids    : (K, P) int32 replacement id per parent slot
     parent_ids   : (K, P) int32 parent ids at t-1
     parent_valid : (K, P) bool
@@ -207,22 +236,68 @@ def partition_children_grid_batched(
     max_dist     : (K,) float32 nearest-cell search cap per child
 
     Returns the updated (H, W) int32 current slice and the (K, P, 3) float32
-    (area, cy, cx) of every piece.
+    (area, cy, cx) of every piece. With ``nn`` a CUDA slice goes to the
+    kernel ``marex_partition_grid`` (one call of it counts into
+    ``partition_children_grid_batched.launch_count``), a slice elsewhere to
+    :func:`partition_children_grid_plain`; without ``nn`` (centroids only)
+    every slice takes the plain version.
     """
+    if not nn or cur_labels.device.type != "cuda":
+        return partition_children_grid_plain(
+            prev_labels, cur_labels, child_ids, piece_ids, parent_ids, parent_valid, parent_cents, max_dist, nn, wrap
+        )
+    _check_partition_args(prev_labels, cur_labels, child_ids, piece_ids, parent_ids, parent_valid, parent_cents,
+                          max_dist)
+    from .._cuda_build import kernel_library
+
     H, W = cur_labels.shape
     K, P = parent_ids.shape
-    child_mask = (cur_labels[None] == child_ids[:, None, None]) & (child_ids > 0)[:, None, None]
-    if nn:
-        pmasks = (prev_labels[None, None] == parent_ids[..., None, None]) & parent_valid[..., None, None]
-        assign = partition_nn_grid(child_mask, pmasks, parent_valid, parent_cents, max_dist, wrap, row_window)
-        del pmasks
-    else:
-        assign = centroid_assign_grid(parent_cents, parent_valid, (H, W), wrap)
-    update = torch.where(child_mask, torch.gather(piece_ids, 1, assign.view(K, -1)).view(K, H, W), 0)
-    pieces = child_mask[:, None] & (assign[:, None] == torch.arange(P, device=assign.device)[None, :, None, None])
-    props = grid_mask_props(pieces, wrap)
-    upd = update.amax(dim=0)  # children are disjoint
-    return torch.where(upd > 0, upd, cur_labels), props
+    dev = cur_labels.device
+    out = cur_labels.clone()
+    sums = torch.zeros((K, P, 6), dtype=torch.int64, device=dev)
+    if K:
+        rowd = torch.empty((K, P, H, W), dtype=torch.int32, device=dev)  # the row distances
+        with torch.cuda.device(dev):
+            code = kernel_library().marex_partition_grid(
+                prev_labels.data_ptr(), cur_labels.data_ptr(), child_ids.data_ptr(), piece_ids.data_ptr(),
+                parent_ids.data_ptr(), parent_valid.data_ptr(), parent_cents.data_ptr(), max_dist.data_ptr(),
+                rowd.data_ptr(), out.data_ptr(), sums.data_ptr(), K, P, H, W, int(wrap),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        partition_children_grid_batched.launch_count += 1
+        if code != 0:
+            raise RuntimeError(f"marex_partition_grid launch failed with cudaError {code}")
+    return out, grid_sums_props(sums, W, wrap)
+
+
+partition_children_grid_batched.launch_count = 0
+
+
+def _check_partition_args(prev, cur, child_ids, piece_ids, parent_ids, parent_valid, parent_cents, max_dist) -> None:
+    """Raise on arguments the partition kernel does not take."""
+    K = child_ids.shape[0] if child_ids.dim() == 1 else -1
+    P = parent_ids.shape[1] if parent_ids.dim() == 2 else -1
+    want = {
+        "prev_labels": (prev, torch.int32, tuple(cur.shape)),
+        "cur_labels": (cur, torch.int32, tuple(cur.shape)),
+        "child_ids": (child_ids, torch.int32, (K,)),
+        "piece_ids": (piece_ids, torch.int32, (K, P)),
+        "parent_ids": (parent_ids, torch.int32, (K, P)),
+        "parent_valid": (parent_valid, torch.bool, (K, P)),
+        "parent_cents": (parent_cents, torch.float32, (K, P, 2)),
+        "max_dist": (max_dist, torch.float32, (K,)),
+    }
+    for name, (x, dtype, shape) in want.items():
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} of shape {shape}, got {x.dtype} of shape {tuple(x.shape)}")
+        if x.device != cur.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous and on {cur.device}, got {x.device}")
+    H, W = cur.shape if cur.dim() == 2 else (0, 0)
+    if cur.dim() != 2 or H < 1 or W < 1 or H * W > 2**31 - 1 or H > 8 * 65535:
+        raise ValueError(f"the label slices must be (H, W) with 1 <= H * W < 2**31 and H <= 524280, "
+                         f"got {tuple(cur.shape)}")
+    if P < 1 or K > 65535:
+        raise ValueError(f"the kernel takes at least 1 parent slot and at most 65535 children, got K={K}, P={P}")
 
 
 def relabel_values_slice(labels: torch.Tensor, olds: Sequence[int], news: Sequence[int]) -> torch.Tensor:

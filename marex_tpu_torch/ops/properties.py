@@ -112,11 +112,28 @@ def grid_mask_props(masks: torch.Tensor, wrap: bool) -> torch.Tensor:
     dev = masks.device
     rows = masks.sum(dim=-1, dtype=torch.int64)  # (..., H)
     cols = masks.sum(dim=-2, dtype=torch.int64)  # (..., W)
-    area = rows.sum(dim=-1)
-    sum_y = (rows * torch.arange(H, device=dev)).sum(dim=-1)
-    sum_x = (cols * torch.arange(W, device=dev)).sum(dim=-1)
-    cnt_right = cols[..., W // 2 + 1 :].sum(dim=-1)
-    wrapped = (cols[..., :EDGE_ZONE].sum(dim=-1) > 0) & (cols[..., max(W - EDGE_ZONE, 0) :].sum(dim=-1) > 0) & wrap
+    sums = [
+        rows.sum(dim=-1),
+        (rows * torch.arange(H, device=dev)).sum(dim=-1),
+        (cols * torch.arange(W, device=dev)).sum(dim=-1),
+        cols[..., W // 2 + 1 :].sum(dim=-1),
+        cols[..., :EDGE_ZONE].sum(dim=-1),
+        cols[..., max(W - EDGE_ZONE, 0) :].sum(dim=-1),
+    ]
+    return grid_sums_props(torch.stack(sums, dim=-1), W, wrap)
+
+
+def grid_sums_props(sums: torch.Tensor, W: int, wrap: bool) -> torch.Tensor:
+    """
+    (area, cy, cx) float32 of grid masks from their six integer sums
+    ``(..., 6)`` int64: cells, sum of y, sum of x, cells with x > W/2, cells
+    in the left and in the right EDGE_ZONE columns (the mask wraps when it
+    has both). The sums are exact in any order, so whoever adds them up (the
+    partition kernel with atomics, or :func:`grid_mask_props`) gets the same
+    float32 props.
+    """
+    area, sum_y, sum_x, cnt_right, left, right = sums.unbind(dim=-1)
+    wrapped = (left > 0) & (right > 0) & wrap
     area, cy, cx = _centroids(area.float(), sum_y.float(), sum_x.float(), cnt_right.float(), wrapped, W)
     return torch.stack([area, cy, cx], dim=-1)
 

@@ -1677,20 +1677,11 @@ class tracker:
                 self.nn_partitioning, int(max(mdist.max(), 1.0)),
             )
         else:
-            new_cur, piece_props = self._partition_grid(store.get_dev(t - 1), cur, arrays, float(mdist.max()))
+            new_cur, piece_props = _part.partition_children_grid_batched(
+                store.get_dev(t - 1), cur, *arrays, self.nn_partitioning, self._wrap
+            )
         store.set_dev(t, new_cur)
         self._enter_pieces(table, batch, piece_props.cpu().numpy())
-
-    def _partition_grid(self, prev: torch.Tensor, cur: torch.Tensor, arrays, max_cap: float):
-        """The gridded partition call of one batch."""
-        H = cur.shape[0]
-        # a row window covering the batch's largest cap lets the EDT's
-        # column pass look only at nearby rows (exact for capped distances)
-        row_window = 0
-        if self.nn_partitioning and max_cap > 0:
-            win = 1 << max(0, int(np.ceil(np.log2(max(max_cap, 1.0)))))
-            row_window = 0 if 2 * win + 1 >= H else win
-        return _part.partition_children_grid_batched(prev, cur, *arrays, self.nn_partitioning, self._wrap, row_window)
 
     @staticmethod
     def _enter_pieces(table: ObjectTable, batch, pp: np.ndarray) -> None:

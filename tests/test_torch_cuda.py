@@ -41,9 +41,10 @@ from marex_tpu_torch.ops.graph_step import (
     graph_step_plain,
     neighbour_min_plain,
 )
+from marex_tpu_torch.ops.partition import partition_children_grid_batched, partition_children_grid_plain
 from marex_tpu_torch.track import _symmetrize_neighbours
 
-from .torch_parity import blob_field, merge_dense_field, mesh_merge_field, tri_mesh
+from .torch_parity import blob_field, merge_dense_field, mesh_merge_field, partition_inputs, tri_mesh
 
 DETECT_FIXED = dict(method_anomaly="fixed_baseline", method_extreme="global_extreme", threshold_percentile=95)
 TRACK_SMALL = dict(R_fill=2, T_fill=2, area_filter_absolute=8, allow_merging=False)
@@ -245,7 +246,8 @@ def test_detrend_std_normalise_on_cuda_matches_cpu():
 def test_merge_on_cuda_matches_cpu():
     """Merge tracking (nearest-cell partitioning) on the merge-dense field:
     integer outputs and merge records bit-identical, area and centroid
-    within 1e-5."""
+    within 1e-5; the partition kernel launched once for each of the card's
+    partition dispatches."""
     _need_cuda()
     data = merge_dense_field()
     T, H, W = data.shape
@@ -262,6 +264,9 @@ def test_merge_on_cuda_matches_cpu():
         tr = port.tracker(ev, mask, R_fill=2, T_fill=0, area_filter_quartile=0.0, allow_merging=True,
                           nn_partitioning=True, overlap_threshold=0.3, device=device, quiet=True)
         out[device] = tr.run(return_merges=True), tr
+        if device == "cpu":
+            launched = partition_children_grid_batched.launch_count
+    launched = partition_children_grid_batched.launch_count - launched
     (c_ev, c_mg), _ = out["cpu"]
     (g_ev, g_mg), g_tr = out["cuda"]
     for name in ("ID_field", "global_ID", "presence", "merge_ledger", "time_start", "time_end"):
@@ -272,6 +277,33 @@ def test_merge_on_cuda_matches_cpu():
         assert np.array_equal(c_mg[name].values, g_mg[name].values), name
     assert g_ev.attrs == c_ev.attrs and g_ev.attrs["total_merges"] > 0
     assert g_ev["ID_field"].data.is_cuda and g_tr.dispatch_counts["partition"] > 0
+    # every grid partition of the card's run went through the kernel, once a dispatch
+    assert launched == g_tr.dispatch_counts["partition"], (launched, g_tr.dispatch_counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(720, 1440), (719, 1441)], ids=["720x1440", "719x1441"])
+@pytest.mark.parametrize("K, P", [(1, 2), (4, 3), (2, 10)], ids=["K1P2", "K4P3", "K2P10"])
+def test_cuda_partition_matches_plain_version(shape, K, P):
+    """The partition kernel against its plain version, bit for bit on the
+    updated slice and the (K, P, 3) props, with and without wrap, at caps 0
+    (only cells on a parent cell are reached), 40 and 600 (past every row);
+    with K > 1 an empty parent mask, an invalid slot and an inactive child."""
+    _need_cuda()
+    H, W = shape
+    for wrap in (True, False):
+        for cap in (0.0, 40.0, 600.0):
+            prev, cur, args = partition_inputs(K * 100 + P, H, W, K, P, cap, edge=K > 1)
+            t = [torch.from_numpy(x).cuda() for x in (prev, cur, *args)]
+            before = partition_children_grid_batched.launch_count
+            got_cur, got_props = partition_children_grid_batched(*t, True, wrap)
+            assert partition_children_grid_batched.launch_count == before + 1
+            want_cur, want_props = partition_children_grid_plain(*t, True, wrap)
+            what = f"{shape} K={K} P={P} wrap={wrap} cap={cap}"
+            assert torch.equal(got_cur, want_cur), f"{what}: {int((got_cur != want_cur).sum())} cells differ"
+            assert torch.equal(got_props, want_props), f"{what}: props {got_props} vs {want_props}"
+            n_child = int(((t[1][None] == t[2][:, None, None]) & (t[2] > 0)[:, None, None]).sum())
+            assert int(got_props[..., 0].sum()) == n_child, what  # every child cell in one piece
 
 
 def _renumbered(table: np.ndarray, seed: int) -> np.ndarray:

@@ -1,9 +1,13 @@
 """Child partitioning of the PyTorch port against ``marex_tpu.ops.partition``
-on seeded numpy inputs: the periodic row distance, the capped EDT (row window
-0 and > 0), nearest-cell and nearest-centroid assignment, the batched
-partition of all merging children of a step (with each piece's props) and
-the consolidation relabel. Integer outputs are bit-identical and float32
-props equal exactly."""
+on seeded numpy inputs: the periodic row distance, the exact EDT (against the
+reference's full one, and against its row-windowed one within the window),
+nearest-cell and nearest-centroid assignment, the batched partition of all
+merging children of a step (with each piece's props; edge cases: an empty
+parent mask, an invalid parent slot, an inactive child slot, a cap of 0, ten
+parents with one across the seam, with and without wrap) and the
+consolidation relabel. Integer outputs are bit-identical and float32 props
+equal exactly. On the CPU the port runs its plain versions, which the CUDA
+kernel is held against on the card."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +18,7 @@ from marex_tpu.ops import label as ref_label
 from marex_tpu.ops import partition as ref_part
 from marex_tpu_torch.ops import partition as port_part
 
-from .torch_parity import assert_same, blob_field
+from .torch_parity import assert_same, blob_field, partition_inputs
 
 H, W = 40, 120
 
@@ -51,9 +55,15 @@ def test_row_distance_matches(wrap):
 @pytest.mark.parametrize("row_window", [0, 6], ids=["full", "window6"])
 @pytest.mark.parametrize("wrap", [True, False], ids=["wrap", "nowrap"])
 def test_edt_matches(wrap, row_window):
+    """The port's EDT is exact everywhere: equal to the reference's full one,
+    and to its row-windowed one wherever that is exact (within the window)."""
     m = _masks(1, 4)
-    r = ref_part.euclidean_distance_transform_grid(jnp.asarray(m), wrap, row_window)
-    p = port_part.euclidean_distance_transform_grid(_t(m), wrap, row_window)
+    r = np.asarray(ref_part.euclidean_distance_transform_grid(jnp.asarray(m), wrap, row_window))
+    p = port_part.euclidean_distance_transform_grid(_t(m), wrap).numpy()
+    if row_window:
+        near = r <= row_window**2
+        assert near.any() and not near.all()
+        r, p = r[near], p[near]
     assert_same(r, p, "squared distances")
 
 
@@ -69,6 +79,8 @@ def test_centroid_assign_matches(wrap):
 @pytest.mark.parametrize("row_window", [0, 8], ids=["full", "window8"])
 @pytest.mark.parametrize("wrap", [True, False], ids=["wrap", "nowrap"])
 def test_partition_nn_matches(wrap, row_window):
+    """The exact EDT capped at 6 gives the reference's assignment everywhere,
+    against its full EDT and against its EDT windowed at 8 rows (>= the cap)."""
     pm = _masks(3, 4, density=0.01)
     child = np.random.default_rng(4).random((H, W)) < 0.5
     valid = np.array([True, True, True, False])
@@ -76,7 +88,7 @@ def test_partition_nn_matches(wrap, row_window):
     mdist = np.float32(6.0)  # small: many cells fall back to the centroids
     r = ref_part.partition_nn_grid(jnp.asarray(child), jnp.asarray(pm), jnp.asarray(valid), jnp.asarray(cents),
                                    jnp.asarray(mdist), wrap, row_window)
-    p = port_part.partition_nn_grid(_t(child), _t(pm), _t(valid), _t(cents), torch.tensor(mdist), wrap, row_window)
+    p = port_part.partition_nn_grid(_t(child), _t(pm), _t(valid), _t(cents), torch.tensor(mdist), wrap)
     assert_same(r, p, "nearest-cell assignment")
 
 
@@ -112,10 +124,60 @@ def test_partition_children_batched_matches(nn):
     r_cur, r_props = ref_part.partition_children_grid_batched(
         jnp.asarray(prev), jnp.asarray(cur), *map(jnp.asarray, args), nn, True, 0
     )
-    p_cur, p_props = port_part.partition_children_grid_batched(_t(prev), _t(cur), *map(_t, args), nn, True, 0)
+    p_cur, p_props = port_part.partition_children_grid_batched(_t(prev), _t(cur), *map(_t, args), nn, True)
     assert_same(r_cur, p_cur, "partitioned slice")
     np.testing.assert_array_equal(np.asarray(r_props), p_props.numpy())
     assert (p_cur.numpy() >= 500).any()  # pieces were written
+
+
+@pytest.mark.parametrize("wrap", [True, False], ids=["wrap", "nowrap"])
+@pytest.mark.parametrize(
+    "case, K, P, cap, edge",
+    [("edge", 4, 3, 12.0, True), ("cap0", 3, 3, 0.0, False), ("ten_parents", 2, 10, 40.0, True)],
+    ids=["edge", "cap0", "ten_parents"],
+)
+def test_partition_children_batched_cases(case, K, P, cap, edge, wrap):
+    """Nearest-cell partitioning of a batch against the reference: an empty
+    parent mask, an invalid slot and an inactive child slot (``edge``); a cap
+    of 0, so only cells on a parent cell are reached and the rest fall back to
+    the centroids; ten parents (the tracker's limit), the first across the
+    seam; each with and without wrap."""
+    prev, cur, args = partition_inputs(11, H, W, K, P, cap, edge)
+    r_cur, r_props = ref_part.partition_children_grid_batched(
+        jnp.asarray(prev), jnp.asarray(cur), *map(jnp.asarray, args), True, wrap, 0
+    )
+    p_cur, p_props = port_part.partition_children_grid_batched(_t(prev), _t(cur), *map(_t, args), True, wrap)
+    assert_same(r_cur, p_cur, f"{case} partitioned slice")
+    np.testing.assert_array_equal(np.asarray(r_props), p_props.numpy())
+    n_pieces = (p_props.numpy()[..., 0] > 0).sum(axis=1)
+    assert (n_pieces[: K - 1] >= 2).all(), n_pieces  # the children were cut
+    if edge and K > 1:
+        assert not p_props.numpy()[K - 1].any()  # the inactive slot
+
+
+def test_partition_kernel_argument_checks():
+    """The kernel's wrapper raises on what the kernel does not take."""
+    prev, cur, args = partition_inputs(12, H, W, 2, 3, 40.0)
+    t = [_t(x) for x in args]
+    port_part._check_partition_args(_t(prev), _t(cur), *t)
+    bad = {
+        "child_ids": t[0].long(),
+        "parent_ids": t[2].long(),
+        "parent_cents": t[4].transpose(1, 2).contiguous(),
+        "max_dist": t[5].double(),
+        "piece_ids": _t(np.ascontiguousarray(np.tile(args[1], (1, 2))))[:, ::2],
+    }
+    for name, x in bad.items():
+        u = list(t)
+        u[["child_ids", "piece_ids", "parent_ids", "parent_valid", "parent_cents", "max_dist"].index(name)] = x
+        with pytest.raises(ValueError, match=name):
+            port_part._check_partition_args(_t(prev), _t(cur), *u)
+    with pytest.raises(ValueError, match="prev_labels"):
+        port_part._check_partition_args(_t(prev[:, :-1]), _t(cur), *t)
+    none = [torch.zeros((2, 0), dtype=torch.int32), torch.zeros((2, 0), dtype=torch.int32),
+            torch.zeros((2, 0), dtype=torch.bool), torch.zeros((2, 0, 2))]
+    with pytest.raises(ValueError, match="parent slot"):
+        port_part._check_partition_args(_t(prev), _t(cur), t[0], *none, t[5])
 
 
 def test_relabel_and_props_matches():

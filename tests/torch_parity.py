@@ -83,6 +83,50 @@ def merge_dense_field(T: int = 60, n_pairs: int = 5, seed: int = 3, ny: int = 48
     return data
 
 
+def partition_inputs(seed: int, H: int, W: int, K: int, P: int, cap: float, edge: bool = False):
+    """One march step's batch for the grid partition, as numpy arrays:
+    ``(prev, cur, (child_ids, piece_ids, parent_ids, parent_valid,
+    parent_cents, max_dist))``. K children (disks of ids 1001..) each over P
+    parent disks (ids 1..K*P) in the previous slice, the first crossing the
+    seam; piece ids 2000 + k*P + p, the first the child's own id; every cap
+    ``cap``. ``edge`` adds an empty parent mask (a valid slot whose id is
+    absent), an invalid slot holding a real id, and, with K > 1, an inactive
+    last child slot (id 0)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+
+    def disk(cy, cx, r):
+        dx = np.minimum(np.abs(xx - cx), W - np.abs(xx - cx))
+        return (yy - cy) ** 2 + dx**2 <= r * r
+
+    prev = np.zeros((H, W), np.int32)
+    cur = np.zeros((H, W), np.int32)
+    scale = max(min(H, W) // 40, 1)
+    pids = np.arange(1, K * P + 1, dtype=np.int32).reshape(K, P)
+    for k in range(K):
+        cy, cx = int(rng.integers(0, H)), int(rng.integers(0, W))
+        if k == 0:
+            cx = 0  # the first parent crosses the seam
+        r_child = int(rng.integers(6, 14)) * scale
+        cur[disk(cy, cx, r_child)] = 1001 + k
+        for p in range(P):
+            py = int(np.clip(cy + rng.integers(-r_child, r_child + 1), 0, H - 1))
+            px = cx if p == 0 else int((cx + rng.integers(-r_child, r_child + 1)) % W)
+            prev[disk(py, px, int(rng.integers(1, 5)) * scale)] = pids[k, p]
+    child = 1001 + np.arange(K, dtype=np.int32)
+    piece = (2000 + np.arange(K * P, dtype=np.int32)).reshape(K, P)
+    piece[:, 0] = child
+    valid = np.ones((K, P), bool)
+    cents = rng.uniform([0, 0], [H - 1, W - 1], (K, P, 2)).astype(np.float32)
+    if edge:
+        pids[0, P - 1] = K * P + 7  # valid, but not in the previous slice
+        valid[(1 % K), P // 2] = False  # its id is in the slice
+        if K > 1:
+            child[K - 1] = 0
+    mdist = np.full(K, cap, np.float32)
+    return prev, cur, (child, piece, pids, valid, cents, mdist)
+
+
 def bool_fields(data: np.ndarray, mask: np.ndarray):
     """``(extreme_events, mask)`` reference Fields on a global 0..360 grid."""
     from marex_tpu.core.field import Field
